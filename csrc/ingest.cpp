@@ -1,8 +1,8 @@
 // Native ingest: packet reassembly + sample unpacking for the F-engine.
 //
-// TPU-native analog of the reference's C++ transport/ingest tier (dc_sand
-// ships spead2/GPUDirect C++ ingest experiments; SURVEY.md §2.1 "Transport
-// experiments").  The TPU compute path is JAX/Pallas; everything in front
+// The analog of the reference's C++ transport/ingest tier (dc_sand ships
+// spead2/GPUDirect C++ ingest experiments; SURVEY.md §2.1 "Transport
+// experiments").  The device compute path is JAX; everything in front
 // of the device boundary — receiving timestamped per-antenna packets,
 // unpacking the digitiser's 10-bit samples to int8, scattering payloads
 // into (ant, pol, time) chunk buffers, and handing full chunks to the
@@ -439,7 +439,7 @@ long long ingest_submit_spead_burst(void* h, const uint8_t* data,
 // SPEAD-64-48 encoder — the transmit mirror of ingest_submit_spead.
 // The reference world ships every hop of the signal chain as SPEAD
 // heaps over UDP multicast (digitiser -> F -> X -> science consumers);
-// the TPU framework's corner-turn rides ICI instead (SURVEY.md §2.3
+// this framework's corner-turn is a device collective instead (SURVEY.md §2.3
 // C7), but the OUTWARD product — visibility dumps, beam data — still
 // leaves the correlator as SPEAD, so the native tier carries the
 // packetizer too.
@@ -609,7 +609,7 @@ void ingest_stats(void* h, uint64_t* ok, uint64_t* late, uint64_t* bad,
 // ===========================================================================
 // UDP transport tier (SURVEY.md §2.1 "Transport experiments", §3.2 network
 // boundaries).  The reference's transport is NIC-facing spead2/UDP-multicast
-// C++; this is the TPU framework's equivalent wire leg: a recvmmsg()
+// C++; this is the framework's equivalent wire leg: a recvmmsg()
 // receiver thread feeding the assembler above (one syscall per burst, the
 // shape ingest_submit_spead_burst was designed for), and a sendmmsg() sink
 // for the SpeadTransmitter's outward products.  Loopback stays available

@@ -1,7 +1,7 @@
-"""dc_sand_tpu — a TPU-native radio-astronomy DSP framework.
+"""dc_sand_tpu — a radio-astronomy DSP framework in JAX, run on NVIDIA GPUs.
 
-A brand-new, TPU-first implementation of the capabilities demonstrated by the
-reference ``ska-sa/dc_sand`` (SARAO/MeerKAT GPU correlator/beamformer sandbox):
+An implementation of the capabilities demonstrated by the reference
+``ska-sa/dc_sand`` (SARAO/MeerKAT GPU correlator/beamformer sandbox):
 the F/X radio-telescope signal chain
 
     int8 antenna streams
@@ -13,25 +13,25 @@ the F/X radio-telescope signal chain
       -> X-engine cross-correlation (visibilities) and/or
          B-engine coherent/incoherent beamforming.
 
-The capability contract is ``/root/repo/BASELINE.json`` (the reference mount was
-empty; see SURVEY.md section 0).  Key contract lines:
+The capability contract is ``BASELINE.json`` at the repository root (the
+reference mount was empty; see SURVEY.md section 0).  Key contract lines:
 
-* BASELINE.json:5  — the full chain, JAX/XLA/Pallas kernels, int8 stages,
-  >50 dB SNR vs float64 golden models, sharded over a TPU pod slice with
-  halo collectives for the FIR overlap and all-to-all for the corner-turn.
+* BASELINE.json:5  — the full chain, int8 stages, >50 dB SNR vs float64
+  golden models, sharded over several devices with halo collectives for
+  the FIR overlap and all-to-all for the corner-turn.
 * BASELINE.json:7-11 — the five graded evaluation configs (see
   :mod:`dc_sand_tpu.config`).
 
 Layout
 ------
 ``golden/``    NumPy float64 golden models (no JAX) — the accuracy oracle.
-``ops/``       TPU kernels: Pallas + jnp (PFB-FIR, FFT, phase, requant,
-               X-engine CMAC, beamforming).
+``ops/``       Plain ``jax.numpy``/``lax`` ops (PFB-FIR, FFT, phase,
+               requant, X-engine CMAC, beamforming).
 ``parallel/``  Mesh construction, corner-turn all-to-all, halo exchange.
 ``models/``    Engine compositions: FEngine, XEngine, BEngine, FX pipelines.
 ``runtime/``   Chunked streaming runner, delay/weight state, checkpointing.
 ``bench/``     Benchmark harness (throughput, roofline accounting).
-``utils/``     SNR metric, misc helpers.
+``utils/``     SNR metric, compile cache, misc helpers.
 """
 
 __version__ = "0.1.0"

@@ -1,15 +1,14 @@
-"""ICI/DCN collective microbenchmarks (C15).
+"""Collective microbenchmarks (C15).
 
-The TPU-native mirror of the reference's NVLink/PCIe/GPUDirect bandwidth
+The mirror of the reference's NVLink/PCIe/GPUDirect bandwidth
 experiments (SURVEY.md §2.1 "Transport experiments"): measure what the
 interconnect actually delivers for the collectives the pipeline uses —
 ``all_to_all`` (corner-turn), ``ppermute`` (halo exchange), ``psum`` /
 ``psum_scatter`` (replicated / EP beam reduction) — per message size,
-per mesh.
+per mesh.  On a GPU mesh XLA runs them through NCCL.
 
-On a multi-chip slice these numbers are the corner-turn capacity check
-(derived need: ~13.7 GB/s/chip at the contract point, BASELINE.md); on a
-single chip they degenerate to self-copies and on a CPU mesh they
+On several devices these numbers are the corner-turn capacity check; on
+a single device they degenerate to self-copies and on a CPU mesh they
 measure host memory — both still exercise the code path.
 """
 
@@ -22,33 +21,17 @@ from jax.sharding import PartitionSpec as P
 from dc_sand_tpu.bench.harness import BenchResult, time_throughput
 from dc_sand_tpu.parallel import FX_AXIS
 
-try:
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
-
 __all__ = ["bench_collective", "COLLECTIVES"]
 
-# the *_pallas entries are the make_async_remote_copy variants
-# (parallel/remote_dma.py) measured against their XLA twins — the
-# planned pod-bring-up comparison (SURVEY.md:127,134,161).  They need a
-# single-axis mesh in interpreter mode (CPU); on hardware they ride the
-# same mesh as the XLA forms.
 COLLECTIVES = ("all_to_all", "ppermute", "psum", "psum_scatter",
-               "all_gather", "all_to_all_pallas", "ppermute_pallas")
+               "all_gather")
 
 
 def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
                      iters: int = 32) -> BenchResult:
-    """Measure achieved per-chip bandwidth of one collective over
-    ``mesh``'s fx axis.  Bytes accounting is the wire traffic per chip
-    (payload leaving/entering each chip), not the array size."""
-    interpret = mesh.devices.flat[0].platform == "cpu"
-    if op.endswith("_pallas") and interpret and len(mesh.axis_names) > 1:
-        # the interpreter only simulates remote DMA on flat meshes
-        import numpy as _np
-        from jax.sharding import Mesh
-        mesh = Mesh(_np.asarray(list(mesh.devices.flat)), (FX_AXIS,))
+    """Measure achieved per-device bandwidth of one collective over
+    ``mesh``'s fx axis.  Bytes accounting is the wire traffic per device
+    (payload leaving/entering each device), not the array size."""
     d = mesh.shape[FX_AXIS]
     n_rows = max(d, int(mb_per_chip * 1e6 / (4 * 1024)))
     n_rows -= n_rows % d
@@ -59,20 +42,6 @@ def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
             return jax.lax.all_to_all(x, FX_AXIS, split_axis=0,
                                       concat_axis=0, tiled=True)
         wire = local_bytes * (d - 1) / d
-    elif op == "all_to_all_pallas":
-        from dc_sand_tpu.parallel.remote_dma import all_to_all_pallas
-
-        def fn(x):
-            return all_to_all_pallas(x, FX_AXIS, mesh.axis_names,
-                                     interpret=interpret)
-        wire = local_bytes * (d - 1) / d
-    elif op == "ppermute_pallas":
-        from dc_sand_tpu.parallel.remote_dma import ring_permute_right
-
-        def fn(x):
-            return ring_permute_right(x, FX_AXIS, mesh.axis_names,
-                                      interpret=interpret)
-        wire = local_bytes
     elif op == "ppermute":
         perm = [(i, (i + 1) % d) for i in range(d)]
 
@@ -97,15 +66,14 @@ def bench_collective(op: str, mesh, *, mb_per_chip: float = 16.0,
         raise ValueError(f"unknown collective {op!r}; "
                          f"available: {COLLECTIVES}")
 
-    sharded = _shard_map(fn, mesh=mesh, in_specs=P(FX_AXIS),
-                         out_specs=P() if op == "psum" else P(FX_AXIS),
-                         check_vma=False)
+    sharded = jax.shard_map(fn, mesh=mesh, in_specs=P(FX_AXIS),
+                            out_specs=P() if op == "psum" else P(FX_AXIS))
     with jax.default_device(mesh.devices.flat[0]):
         x = jnp.zeros((n_rows * d, 1024), jnp.float32)
     wall = time_throughput(sharded, (x,), iters=iters)
     return BenchResult(
         name=f"collective_{op}_{d}dev",
-        metric=f"{op} per-chip bandwidth", value=wire / wall / 1e9,
+        metric=f"{op} per-device bandwidth", value=wire / wall / 1e9,
         unit="GB/s", wall_s=wall, bytes_moved=wire,
         extra={"devices": d, "local_mb": local_bytes / 1e6,
                "platform": mesh.devices.flat[0].platform},

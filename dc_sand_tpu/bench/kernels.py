@@ -1,15 +1,12 @@
 """Per-kernel benchmarks: X-engine CMAC, beamformer, corner-turn local
 reorder, PFB stages (C18).
 
-Reports both HBM-roofline fraction and, for the MXU kernels, achieved
-compute rate vs the chip's int8/fp32 peak — the dc_sand idiom of "timing
-scripts compared against rooflines" (SURVEY.md §4.1), measured not
-eyeballed.
+Reports the HBM roofline share and, for the matrix ops, the achieved
+int8/fp32 rate — the dc_sand idiom of "timing scripts compared against
+rooflines" (SURVEY.md §4.1), measured not eyeballed.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -25,13 +22,9 @@ __all__ = ["bench_xcorr", "bench_beamform", "bench_fft"]
 def bench_fft(n_chans: int = 1024, n_streams: int = 16,
               n_spectra: int = 512, iters: int = 64) -> list:
     """rfft implementations head to head at the channelizer shape (C4):
-    XLA's ``rfft`` (VPU) vs the matmul-formulated Cooley-Tukey split on
-    the MXU (``ops.fft_mxu.rfft_mxu``).  The production F-engine fuses
-    its own 2-stage FFT in the Pallas kernel (benched via ``fengine``);
-    this comparison is the standalone-FFT datum that motivated it —
-    run both, read which unit wins at a given shape."""
-    import jax
-
+    XLA's ``rfft`` vs the matmul-formulated Cooley-Tukey split
+    (``ops.fft_mxu.rfft_mxu``, the ROADMAP A3 candidate) — run both,
+    read which wins at a given shape."""
     from dc_sand_tpu.ops.fft import channelize
     from dc_sand_tpu.ops.fft_mxu import channelize_mxu
     m = 2 * n_chans
@@ -46,7 +39,7 @@ def bench_fft(n_chans: int = 1024, n_streams: int = 16,
                                iters=iters)
         samples = n_streams * n_spectra * m
         # 5 M log2 M real FLOPs per length-M rfft (standard count); the
-        # MXU path trades that for 6x-dense-DFT matmul MACs
+        # matmul path trades that for 6x-dense-DFT matmul MACs
         flops = 5 * samples * np.log2(m)
         out.append(BenchResult(
             name=name, metric="FFT samples/s",
@@ -60,40 +53,22 @@ def bench_fft(n_chans: int = 1024, n_streams: int = 16,
 
 
 def bench_xcorr(n_ants: int = 64, n_pols: int = 2, n_chans: int = 4096,
-                n_spectra: int = 256, iters: int = 64,
+                n_spectra: int = 256, iters: int = 16,
                 mode: str = "accumulate") -> BenchResult:
-    """X-engine CMAC throughput: baselines/s and CMAC/s on the int8 MXU
-    path (BASELINE.json:2 primary metric 2).
+    """X-engine CMAC throughput: baselines/s and CMAC/s of the s8 x s8
+    -> s32 dots (BASELINE.json:2 primary metric 2).
 
-    ``mode="accumulate"`` measures the streaming path the FX step
-    actually runs — the Pallas in-place block-accumulator CMAC
-    (ops.xcorr_accumulate), accumulator traffic included;
-    ``mode="native"`` the fused relayout+CMAC kernel consuming the
-    F-engine's plane layout (ops.xcorr_accumulate_native — what the
-    production fx step dispatches); ``mode="extract"`` is the legacy
-    per-chunk extract+gather form."""
+    ``mode="accumulate"`` measures the streaming path the FX step runs
+    (``ops.xcorr_accumulate`` into the packed accumulator, accumulator
+    traffic included); ``mode="extract"`` the per-chunk
+    extract+gather form (``ops.xcorr``)."""
     ap = n_ants * n_pols
-    if mode == "native":
-        from dc_sand_tpu.ops.fengine_fused import native_factor
-        m2, k1n = native_factor(n_chans)
-        qn = jax.block_until_ready(jax.jit(
-            lambda: (jax.random.normal(
-                jax.random.key(0),
-                (n_ants, n_pols, m2, 2, n_spectra, k1n)) * 30)
-            .astype(jnp.int8))())
-        acc = jax.block_until_ready(
-            jnp.zeros(ops.acc_shape(n_ants, n_pols, n_chans), jnp.int32))
-        wall = time_throughput(
-            lambda q_, a_: ops.xcorr_accumulate_native(a_, q_),
-            (qn, acc), iters=iters)
-        acc_bytes = 2 * acc.size * 4
-        q = qn
-    elif mode == "accumulate":
-        q = jax.block_until_ready(jax.jit(
-            lambda: (jax.random.normal(
-                jax.random.key(0),
-                (n_chans, n_ants, n_pols, n_spectra, 2)) * 30)
-            .astype(jnp.int8))())
+    q = jax.block_until_ready(jax.jit(
+        lambda: (jax.random.normal(
+            jax.random.key(0),
+            (n_chans, n_ants, n_pols, n_spectra, 2)) * 30)
+        .astype(jnp.int8))())
+    if mode == "accumulate":
         acc = jax.block_until_ready(
             jnp.zeros(ops.acc_shape(n_ants, n_pols, n_chans), jnp.int32))
         # acc rides as a real argument: a closed-over array would be
@@ -102,14 +77,11 @@ def bench_xcorr(n_ants: int = 64, n_pols: int = 2, n_chans: int = 4096,
             lambda q_, a_: ops.xcorr_accumulate(a_, q_), (q, acc),
             iters=iters)
         acc_bytes = 2 * acc.size * 4          # read + write per chunk
-    else:
-        q = jax.block_until_ready(jax.jit(
-            lambda: (jax.random.normal(
-                jax.random.key(0),
-                (n_chans, n_ants, n_pols, n_spectra, 2)) * 30)
-            .astype(jnp.int8))())
+    elif mode == "extract":
         wall = time_throughput(ops.xcorr, (q,), iters=iters)
         acc_bytes = 0
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
     n_bl = len(baseline_pairs(n_ants))
     # complex MACs: full ap x ap matrix per channel per spectrum (the
     # computation actually performed; the triangle is what's kept)
@@ -134,46 +106,22 @@ def bench_xcorr(n_ants: int = 64, n_pols: int = 2, n_chans: int = 4096,
 
 
 def bench_beamform(n_beams: int = 16, n_ants: int = 64, n_pols: int = 2,
-                   n_chans: int = 4096, n_spectra: int = None,
-                   iters: int = 128, quant_scale: float = 0.0,
-                   layout: str = "wire") -> BenchResult:
-    """Coherent beamformer throughput (C10).
-
-    ``layout="native"`` benches :func:`ops.beamform_native` on the fused
-    F-engine's plane layout (the production beam-mode path: MXU
-    identity-dot relayout in VMEM, no input transpose through HBM).
-    The native default n_spectra is 256 (the production chunk tile AND
-    the kernel's b % 128 gate — a smaller b silently measures the XLA
-    decode fallback instead of the Pallas kernel).
-    """
-    from dc_sand_tpu.ops.fengine_fused import native_factor
-    rng = np.random.default_rng(0)
-    if n_spectra is None:
-        n_spectra = 256 if layout == "native" else 64
-    if layout == "native":
-        m2, k1n = native_factor(n_chans)
-        if n_spectra % 128:
-            raise ValueError(
-                f"native layout needs n_spectra % 128 == 0 (got "
-                f"{n_spectra}) — smaller tiles fall back to the XLA "
-                "decode path and would not measure the kernel")
-        q = jax.block_until_ready(jax.jit(
-            lambda: (jax.random.normal(
-                jax.random.key(0),
-                (n_ants, n_pols, m2, 2, n_spectra, k1n)) * 30)
-            .astype(jnp.int8))())
-        # quant_scale > 0 benches the C10 int8 beam product with
-        # in-kernel quantisation (the fp32 out + decode were the
-        # measured 16-beam bound)
-        fn = functools.partial(ops.beamform_native,
-                               quant_scale=quant_scale) \
-            if quant_scale else ops.beamform_native
+                   n_chans: int = 4096, n_spectra: int = 64,
+                   iters: int = 16,
+                   quant_scale: float = 0.0) -> BenchResult:
+    """Coherent beamformer throughput (C10); ``quant_scale > 0`` adds
+    the int8 beam product's quantisation."""
+    q = jax.block_until_ready(jax.jit(
+        lambda: (jax.random.normal(
+            jax.random.key(0),
+            (n_ants, n_pols, n_spectra, n_chans, 2)) * 30)
+        .astype(jnp.int8))())
+    if quant_scale:
+        def fn(q_, w_):
+            y = ops.beamform(q_, w_)
+            return jnp.clip(jnp.rint(y * quant_scale), -127,
+                            127).astype(jnp.int8)
     else:
-        q = jax.block_until_ready(jax.jit(
-            lambda: (jax.random.normal(
-                jax.random.key(0),
-                (n_ants, n_pols, n_spectra, n_chans, 2)) * 30)
-            .astype(jnp.int8))())
         fn = ops.beamform
     w = jax.block_until_ready(jax.jit(
         lambda: jax.random.normal(jax.random.key(1),
@@ -185,14 +133,13 @@ def bench_beamform(n_beams: int = 16, n_ants: int = 64, n_pols: int = 2,
     out_bytes = n_beams * n_pols * n_spectra * n_chans * 2 * (
         1 if quant_scale else 4)
     return BenchResult(
-        name="beamform" + ("_native" if layout == "native" else "")
-             + ("_int8" if quant_scale else "")
+        name="beamform" + ("_int8" if quant_scale else "")
              + (f"_{n_beams}b" if n_beams != 16 else ""),
         metric="beamformed samples/s",
         value=n_beams * n_pols * n_spectra * n_chans / wall,
         unit="beam-samples/s", wall_s=wall,
         bytes_moved=in_bytes + out_bytes,
         extra={"fp32_gflops": flops / wall / 1e9, "n_beams": n_beams,
-               "n_ants": n_ants, "n_chans": n_chans, "layout": layout,
+               "n_ants": n_ants, "n_chans": n_chans,
                "quant_scale": quant_scale},
     ).finish()

@@ -5,9 +5,9 @@ each benchmark under ``bench/results/`` against the previous one and
 flags drops beyond tolerance.  Results files are written per run by
 ``BenchResult.save`` keyed by commit + timestamp.
 
-Comparisons are keyed on ``(name, platform, shape)``: a CPU-mesh
-harness validation run must never gate — or be gated by — real-chip
-numbers, and a benchmark re-run at a different problem shape (channel
+Comparisons are keyed on ``(name, device kind, shape)``: a CPU-mesh
+harness validation run must never gate — or be gated by — accelerator
+numbers, nor one accelerator another's, and a benchmark re-run at a different problem shape (channel
 count, spectra tile, worker count, ...) starts its own series instead
 of reading as a spurious regression against the old shape.
 """
@@ -30,7 +30,8 @@ TOLERANCE = 0.10  # flag >10% throughput drop
 # records of code that no longer existed).  This makes the check
 # mechanical: for every judged config, the NEWEST verify record's
 # commit must postdate every commit touching the verified compute path.
-# ``cli regress`` fails red until ``scripts/record_all.sh`` is re-run.
+# ``cli regress`` fails red until ``cli verify <config> --record`` is
+# re-run for the stale series.
 
 # series that must exist and be fresh (filename prefix under results/)
 VERIFY_SERIES = ("verify_pfb1k", "verify_pfb4k", "verify_fx4",
@@ -90,19 +91,21 @@ def verify_staleness(results_dir: str = "bench/results",
             failures.append(
                 f"{series}: newest record is at {commit} but "
                 f"{len(touching)} kernel-path commit(s) postdate it "
-                f"(newest: {touching[0]}) — rerun scripts/record_all.sh")
+                f"(newest: {touching[0]}) — rerun `cli verify "
+                f"<config> --record`")
     return failures
 
 # extra-dict keys that define the measured problem's SHAPE: same-name
 # records differing in any of these are different experiments
 _SHAPE_KEYS = ("n_chans", "n_spectra", "n_ants", "n_streams", "n_beams",
-               "n_workers", "spectra", "taps", "stage2", "impl", "mode",
-               "layout", "delay_in_ingest", "packet_samples")
+               "n_workers", "spectra", "taps", "mode", "layout",
+               "delay_in_ingest", "packet_samples")
 
 
 def _platform_of(rec: dict) -> str:
     extra = rec.get("extra") or {}
-    return str(extra.get("platform") or extra.get("chip") or "unknown")
+    return str(extra.get("device_kind") or extra.get("platform")
+               or extra.get("chip") or "unknown")
 
 
 def _shape_of(rec: dict) -> str:

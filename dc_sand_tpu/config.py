@@ -92,12 +92,6 @@ class ChainConfig:
 
     # Quantisation.
     quant_scale: float = 1.0  # default per-channel EQ gain magnitude
-    # Fused-kernel stage-2 matmul-DFT precision: None = the kernel
-    # default (bf16x3: hi/lo-split bf16, 3 MXU passes, fp32 accum,
-    # 73+ dB quantized end-to-end); "int16" trades ~10 dB of margin for
-    # ~2x stage-2 rate (per-row int8 hi/lo split, 60 dB quantized);
-    # "fp32" is exact-mode (HIGHEST) for verification studies.
-    stage2: str = None
 
     # Sharding intent (used by models/parallel when a mesh is supplied).
     shard_ants: bool = False
@@ -111,8 +105,8 @@ class ChainConfig:
     # Beam-parallel B-engine (the EP analog, SURVEY.md §2.3 parallelism
     # table): instead of psum-replicating every beam on every chip, the
     # partial-beam reduction over antenna shards runs as a
-    # ``psum_scatter`` over the beam axis, so each chip keeps a
-    # fully-reduced 1/N beam subset — half the ICI traffic of the
+    # ``psum_scatter`` over the beam axis, so each device keeps a
+    # fully-reduced 1/N beam subset — half the link traffic of the
     # all-reduce and the downstream Stokes/requant work sharded N ways.
     # Needs n_beams divisible by the fx-axis size.  ``None`` (= off)
     # rather than False so enabling the knob's *existence* does not
@@ -195,7 +189,7 @@ _CONFIGS = {
         run_xengine=True,
     ),
     # 4. "64-antenna dual-pol FX correlator, channels sharded across chips,
-    #    all-to-all corner-turn"  [BASELINE.json:10]
+    #    all-to-all corner-turn"  [BASELINE.json:10]  (chips = devices)
     "fx64": ChainConfig(
         name="fx64",
         n_ants=64,
@@ -206,15 +200,13 @@ _CONFIGS = {
         run_xengine=True,
         shard_ants=True,
         shard_chans=True,
-        # Production cadence is measured, not guessed: the X-engine's
-        # plane-resident accumulator traffic scales 1/nt with chunk
-        # length (ops/xcorr.py), so bigger chunks win end-to-end even
-        # though the bare 16-stream F-engine prefers 512 — fx_step at
-        # the contract shape on v5e: 512-spectra chunks 25.05, 1024
-        # 25.89, 2048 26.38 Gsamp/s (1.93x the real-time floor; s9
-        # sweep records).  One 2048-spectra chunk is 9.8 ms of stream
-        # and 2.15 GB of native-layout spectra — latency and HBM both
-        # comfortable.  Dump every 4 chunks as before.
+        # Production cadence: the X-engine reads and writes the whole
+        # (4096, 128, 128) int32 accumulator (268 MB) once per chunk,
+        # so longer chunks amortise it.  One 2048-spectra chunk is
+        # 9.8 ms of stream and 2.15 GB of int8 input; a dump every 4
+        # chunks (8192 spectra, 39 ms).  The cadence is carried over
+        # from the earlier accelerator and has not been re-tuned for
+        # the GPU (ROADMAP A5).
         spectra_per_chunk=2048,
         n_spectra_per_acc=8192,
     ),

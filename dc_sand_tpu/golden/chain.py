@@ -1,7 +1,7 @@
 """Float64 golden models of every pipeline stage (C2-C11, C17).
 
-Stage semantics defined here are THE definition for the whole framework; the
-TPU kernels in :mod:`dc_sand_tpu.ops` implement exactly these formulas and
+Stage semantics defined here are THE definition for the whole framework;
+the JAX ops in :mod:`dc_sand_tpu.ops` implement exactly these formulas and
 are verified against them at >50 dB SNR (BASELINE.json:5).
 
 Array conventions
@@ -130,7 +130,7 @@ def requantize(spectra: np.ndarray, gains: np.ndarray) -> np.ndarray:
     """Per-channel complex gain then 8-bit requantisation (C6).
 
     ``y = clip(rint(Re/Im(s * g)), -127, 127)``, returned as complex128
-    holding exact integer values (the TPU side stores int8 re/im pairs with
+    holding exact integer values (the JAX side stores int8 re/im pairs with
     the same values).  ``gains[..., k]`` complex, broadcastable against
     ``spectra``'s ``(..., b, k)``.
     """
@@ -148,7 +148,7 @@ def requantize(spectra: np.ndarray, gains: np.ndarray) -> np.ndarray:
 def corner_turn(spectra: np.ndarray) -> np.ndarray:
     """(ant, pol, b, k) -> (k, ant, pol, b): antenna-major to channel-major.
 
-    In the distributed pipeline this is the all-to-all over ICI
+    In the distributed pipeline this is the device all-to-all
     (BASELINE.json:5,10); the golden model is the pure data-movement
     semantics: a transpose.
     """
@@ -163,7 +163,7 @@ def baseline_pairs(n_ants: int) -> np.ndarray:
     """Canonical baseline ordering: (i, j) for i<=j, i-major.
 
     2080 pairs at 64 antennas including autos (BASELINE.json:5).  Shared by
-    golden and TPU X-engines so visibility layouts match index-for-index.
+    golden and JAX X-engines so visibility layouts match index-for-index.
     """
     return np.array([(i, j) for i in range(n_ants)
                      for j in range(i, n_ants)], dtype=np.int32)

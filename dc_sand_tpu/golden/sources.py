@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["cw_tone", "gaussian_noise", "quantize_adc"]
+__all__ = ["cw_tone", "gaussian_noise", "gaussian_noise_int8", "quantize_adc"]
 
 
 def cw_tone(n_samples: int, freq_hz: float, sample_rate_hz: float,

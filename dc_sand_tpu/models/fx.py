@@ -2,7 +2,7 @@
 
 ``fx_step_local`` is the single-device composition (config 3);
 ``make_sharded_fx_step`` wraps it in ``shard_map`` over the ``fx`` mesh
-axis: antenna-sharded F-engines -> all-to-all corner-turn over ICI ->
+axis: antenna-sharded F-engines -> all-to-all corner-turn ->
 channel-sharded X-engines (config 4).  ``make_time_sharded_fengine``
 shards the *sample stream* instead, with the overlap-save halo exchange
 (the SP/context-parallel mode).
@@ -22,18 +22,12 @@ from dc_sand_tpu.parallel import (FX_AXIS, TIME_AXIS,
                                   corner_turn_all_to_all,
                                   halo_exchange_left)
 
-try:  # jax >= 0.4.35 exposes shard_map at top level
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
-
 __all__ = ["fx_step_local", "make_sharded_fx_step",
            "make_time_sharded_fengine"]
 
 
 def fx_step_local(x, window, taps, n_chans, *, frac_delay=None, phase=None,
-                  gains=None, coarse_delays=None, max_delay=0,
-                  impl: str = "auto"):
+                  gains=None, coarse_delays=None, max_delay=0):
     """Single-device FX: F-engine -> (local) corner-turn -> X-engine.
 
     ``x: (ant, pol, t)`` int8 -> visibilities ``(n_bl, pol, pol, k, 2)``
@@ -41,7 +35,7 @@ def fx_step_local(x, window, taps, n_chans, *, frac_delay=None, phase=None,
     """
     q = f_engine(x, window, taps, n_chans, coarse_delays=coarse_delays,
                  max_delay=max_delay, frac_delay=frac_delay, phase=phase,
-                 gains=gains, impl=impl)
+                 gains=gains)
     # local corner-turn: (ant, pol, b, k, 2) -> (k, ant, pol, b, 2)
     qk = jnp.moveaxis(q, 3, 0)
     return ops.xcorr(qk)
@@ -49,7 +43,7 @@ def fx_step_local(x, window, taps, n_chans, *, frac_delay=None, phase=None,
 
 def make_sharded_fx_step(mesh, window, taps: int, n_chans: int,
                          n_ants: int, *, quantized: bool = True,
-                         impl: str = "auto", max_delay: int = 0):
+                         max_delay: int = 0):
     """Build the jitted SPMD FX step over the ``fx`` mesh axis.
 
     Layout contract (BASELINE.json:5,10):
@@ -58,8 +52,7 @@ def make_sharded_fx_step(mesh, window, taps: int, n_chans: int,
       (ant, pol, b)`` sharded on ant; ``gains (k, 2)`` replicated;
       optional ``coarse_delays (ant, pol)`` sharded on ant.
     * F-engine runs on local antennas only (no comm);
-    * corner-turn = all_to_all over ICI re-sharding ant-major ->
-      channel-major;
+    * corner-turn = all_to_all re-sharding ant-major -> channel-major;
     * X-engine CMAC on local channel block, all antennas;
     * out: visibilities ``(n_bl, pol, pol, k, 2)`` sharded on the channel
       axis (3).
@@ -73,25 +66,21 @@ def make_sharded_fx_step(mesh, window, taps: int, n_chans: int,
         q = f_engine(x, window, taps, n_chans,
                      coarse_delays=coarse_delays, max_delay=max_delay,
                      frac_delay=frac_delay, phase=phase,
-                     gains=gains if quantized else None, impl=impl)
+                     gains=gains if quantized else None)
         q = corner_turn_all_to_all(q, FX_AXIS)  # (ant, pol, b, k_l, 2)
         qk = jnp.moveaxis(q, 3, 0)              # (k_l, ant, pol, b, 2)
         return ops.xcorr(qk)                    # (n_bl, p, p, k_l, 2)
 
     a = P(FX_AXIS)
-    shard = _shard_map(
+    shard = jax.shard_map(
         step, mesh=mesh,
         in_specs=(a, a, a, P(), a),
         out_specs=P(None, None, None, FX_AXIS),
-        # pallas_call (the fused F-engine under impl='auto'/'fused')
-        # can't declare its varying mesh axes (see models/pipeline.py)
-        check_vma=False,
     )
     return jax.jit(shard)
 
 
-def make_time_sharded_fengine(mesh, window, taps: int, n_chans: int, *,
-                              impl: str = "auto"):
+def make_time_sharded_fengine(mesh, window, taps: int, n_chans: int):
     """Build a jitted F-engine with the sample stream sharded over the
     ``time`` mesh axis (SP mode): each chip channelizes a contiguous
     stream segment after receiving the overlap-save halo from its left
@@ -107,16 +96,14 @@ def make_time_sharded_fengine(mesh, window, taps: int, n_chans: int, *,
 
     def step(x_local):
         xh = halo_exchange_left(x_local, halo, TIME_AXIS)
-        fir = ops.pfb_fir(xh, window, taps, m, impl=impl)
+        fir = ops.pfb_fir(xh, window, taps, m)
         spec = ops.channelize(fir, n_chans)
         from dc_sand_tpu.utils.cplx import c2ri
         return c2ri(spec)
 
-    shard = _shard_map(
+    shard = jax.shard_map(
         step, mesh=mesh,
         in_specs=(P(None, None, TIME_AXIS),),
         out_specs=P(None, None, TIME_AXIS),
-        # as above: the Pallas PFB-FIR path must trace under shard_map
-        check_vma=False,
     )
     return jax.jit(shard)

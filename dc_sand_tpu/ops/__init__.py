@@ -1,20 +1,14 @@
-"""TPU compute kernels (Pallas + jnp) for every hot pipeline stage.
+"""Compute ops for every pipeline stage, in plain ``jax.numpy``/``lax``.
 
-Each op has a reference ``jnp`` implementation (XLA-fused, used on CPU and
-as a fallback) and, for the contract's headline kernels (PFB-FIR, X-engine
-CMAC, beamformer — BASELINE.json:5 "all as JAX/XLA/Pallas kernels"), a
-Pallas-TPU kernel.  ``impl="auto"`` picks Pallas on TPU, jnp elsewhere.
+Each op is the straightforward XLA form of its float64 golden model
+(:mod:`dc_sand_tpu.golden`); XLA fuses the elementwise stages, sends
+``rfft`` to the GPU's FFT library and the dots to its GEMM path.
 
 Numerics policy (the >50 dB bound, BASELINE.json:5, drives everything):
 int8 input -> float32 FIR accumulation -> float32 FFT and phase rotation ->
-int8 requantised output -> int32-exact MXU CMAC.  bfloat16 appears ONLY
-where it is exact or error-bounded by construction: hi/lo-split matmuls
-accumulating in fp32 (the fused F-engine's stage-2 ``bf16x3``, the
-beamformer's weight split — ~108 dB bare, verified >50 dB end-to-end) and
-identity-dot relayouts / CMACs of int8-range integers (exact in bf16 for
-|v| <= 256; the native X/B-engine kernels gate on the fp32-accumulation
-exactness bound b <= 1024).  Plain bf16 arithmetic on the signal path is
-not allowed.
+int8 requantised output -> int32-exact s8 x s8 -> s32 CMAC.  Every float32
+dot carries ``precision=HIGHEST`` so TF32 never enters silently; bfloat16
+does not appear on the signal path.
 """
 
 from .pfb import pfb_fir  # noqa: F401
@@ -22,8 +16,6 @@ from .fft import channelize  # noqa: F401
 from .phase import fine_delay_fringe  # noqa: F401
 from .quant import requantize, dequantize  # noqa: F401
 from .xcorr import (xcorr, xcorr_accumulate,  # noqa: F401
-                    xcorr_accumulate_a2, xcorr_accumulate_native,
                     extract_vis, acc_shape)
-from .beamform import (beamform, beamform_native,  # noqa: F401
-                       incoherent_sum, incoherent_sum_native)
+from .beamform import beamform, incoherent_sum  # noqa: F401
 from .stokes import stokes  # noqa: F401

@@ -3,39 +3,22 @@
 Golden semantics: :func:`dc_sand_tpu.golden.chain.beamform` /
 :func:`~dc_sand_tpu.golden.chain.incoherent_sum` (BASELINE.json:11).
 
-TPU-first design: per channel the coherent beam is a (beam, ant) x
-(ant, pol*time) matmul — MXU work.  Two implementations share the math:
-
-* ``jnp`` — four real float32 einsums at HIGHEST precision (fallback,
-  CPU, and odd shapes).
-* ``pallas`` — a kernel whose grid walks channel tiles; per channel ONE
-  real matmul computes the whole complex product via the stacked-real
-  form ``[yr; yi] = [[wr, -wi], [wi, wr]] @ [xr; xi]``, with the weight
-  matrix pre-split hi/lo into bfloat16 (two bf16 MXU passes, fp32
-  accumulation ~= 16-bit effective weight mantissa) and the int8
-  samples cast to bfloat16 EXACTLY (|x| <= 127 fits bf16's 8-bit
-  mantissa).  This is C10's native kernel per SURVEY.md:146-150 —
-  stage-2 of the fused F-engine uses the same split trick.
+Per channel the coherent beam is a (beam, ant) x (ant, pol*time) complex
+matrix product, written as four real float32 einsums at ``HIGHEST``
+precision: on a GPU a float32 dot at default precision may run in TF32
+(about three decimal digits), which the >50 dB bound does not allow.
 
 When antennas are sharded over the mesh the caller psums the partial
-beams over the ``ant`` axis (SURVEY.md §2.3 parallelism table:
+beams over the ``fx`` axis (SURVEY.md §2.3 parallelism table:
 beam-parallel is the EP analog).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from dc_sand_tpu.ops._dispatch import resolve_impl
-
-__all__ = ["beamform", "beamform_native", "incoherent_sum",
-           "incoherent_sum_native"]
+__all__ = ["beamform", "incoherent_sum"]
 
 _P = jax.lax.Precision.HIGHEST
 
@@ -48,325 +31,7 @@ def _split_ri(x: jax.Array):
     return x[..., 0].astype(jnp.float32), x[..., 1].astype(jnp.float32)
 
 
-def _bf_kernel(w_hi_ref, w_lo_ref, x_ref, out_ref, *, kt):
-    # w refs: (kt, 2B, 2A) bf16; x: (kt, 2A, PB) bf16; out (kt, 2B, PB)
-    for c in range(kt):
-        x = x_ref[c]
-
-        def dot(w):
-            return jax.lax.dot_general(
-                w, x, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-
-        out_ref[c] = dot(w_hi_ref[c]) + dot(w_lo_ref[c])
-
-
-def _beamform_pallas(xr, xi, wr, wi, interpret=False):
-    """xr/xi: (ant, pol, b, k) float32 (exact int8 values); wr/wi:
-    (beam, ant, k) float32.  Returns (beam, pol, b, k, 2) float32."""
-    a, p, b, k = xr.shape
-    nb = wr.shape[0]
-    # stacked-real operands, channel-major
-    x2 = jnp.concatenate([xr, xi], axis=0)          # (2a, p, b, k)
-    x2 = jnp.moveaxis(x2.reshape(2 * a, p * b, k), 2, 0)  # (k, 2a, pb)
-    x2 = x2.astype(jnp.bfloat16)                    # exact for int8 data
-    w2 = jnp.concatenate([
-        jnp.concatenate([wr, -wi], axis=1),
-        jnp.concatenate([wi, wr], axis=1),
-    ], axis=0)                                      # (2nb, 2a, k)
-    w2 = jnp.moveaxis(w2, 2, 0)                     # (k, 2nb, 2a)
-    w_hi = w2.astype(jnp.bfloat16)
-    w_lo = (w2 - w_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-
-    kt = 1
-    for cand in (8, 4, 2, 1):
-        if k % cand == 0:
-            kt = cand
-            break
-    out = pl.pallas_call(
-        functools.partial(_bf_kernel, kt=kt),
-        grid=(k // kt,),
-        in_specs=[
-            pl.BlockSpec((kt, 2 * nb, 2 * a), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((kt, 2 * nb, 2 * a), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((kt, 2 * a, p * b), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((kt, 2 * nb, p * b), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((k, 2 * nb, p * b), jnp.float32),
-        interpret=interpret,
-    )(w_hi, w_lo, x2)
-    # (k, 2nb, pb) -> (beam, pol, b, k, 2)
-    out = jnp.moveaxis(out, 0, 2).reshape(2, nb, p, b, k)
-    return jnp.stack([out[0], out[1]], axis=-1)
-
-
-def _beam_native_kernel_pmerge(qn_ref, eye_ref, w2_ref, out_ref,
-                               x2_scr, *, a, p, b, k1n, kg, nb, pg,
-                               qs=0.0):
-    """Pol-merged-COLUMNS variant of :func:`_beam_native_kernel`.
-
-    The 16-beam point is fixed-cost-bound: per (plane, pol) relayout
-    dots and per (k1, pol) beam dots at 4nb = 64 MXU rows each.  Here
-    both pols ride the LANE/column axis of every dot — ``p*b`` columns
-    instead of ``b`` — halving the dispatch count at identical MACs.
-    This is NOT the reverted round-4 pol-merge (13a8e2b): that laid
-    ``(..., p, b)`` with p = 2 on the SUBLANE axis (4x vreg padding);
-    here p is folded into the minor/lane axis where b is already a
-    multiple of 128, so every tile stays dense.  Bitwise: each output
-    element is the same contraction, columns are merely batched."""
-    g = pl.program_id(1)
-
-    @pl.when(g == 0)
-    def _():
-        blk = qn_ref[...]                   # (ap, pg, 2, b, k1n) int8
-        x2_scr[...] = blk.reshape(a, p, pg, 2, b, k1n).transpose(
-            2, 3, 0, 1, 4, 5)               # (pg, 2, a, p, b, k1n)
-
-    for pp in range(pg):
-        x4 = x2_scr[pp].reshape(2, a, p * b, k1n)
-        z = jax.lax.dot_general(
-            eye_ref[...], x4, (((1,), (3,)), ((), ())),
-            preferred_element_type=jnp.int32)        # (kg, 2, a, pb)
-        zb = z.astype(jnp.bfloat16)                  # exact: int8 range
-        for k1 in range(kg):
-            a2 = zb[k1].reshape(2 * a, p * b)
-            y2 = jax.lax.dot_general(
-                w2_ref[pp, k1], a2, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)  # (4nb, pb)
-            y = y2[:2 * nb] + y2[2 * nb:]
-            if qs:
-                y = jnp.clip(jnp.round(y * qs), -127, 127).astype(
-                    jnp.int8)
-            out_ref[pp, k1] = y
-
-
-def _beam_native_kernel(qn_ref, eye_ref, w2_ref, out_ref,
-                        x2_scr, *, a, p, b, k1n, kg, nb, pg,
-                        qs=0.0):
-    """Beamform ``pg`` k2-planes x one k1-group straight from the fused
-    F-engine's native layout.
-
-    Same relayout trick as the X-engine's native CMAC kernel
-    (ops/xcorr.py:_cmac_native_kernel): channel k1 lives on the LANE
-    axis, so an identity contraction against it moves it to the front
-    on the MXU — and the operand never round-trips HBM for the
-    (a,p,b,K)->(K,..) transpose that made the XLA beam path
-    input-relayout-bound.  The identity pass rides the s8xs8->s32 MXU
-    path (2x the bf16 MACs/s on this chip; each output is a one-hot
-    sum of int8 values, so the s32->bf16 cast is exact) — the round-3
-    bf16-eye variant spent 2x the beam dot's own MXU time on the
-    relayout at 16 beams.  Per (k1, pol) the beam product is the
-    stacked-real matmul ``[yr; yi] = [[wr,-wi],[wi,wr]] @ [xr; xi]``
-    with hi/lo-bf16-split weights and fp32 accumulation (~16-bit
-    effective weight mantissa, as the wire kernel above).
-
-    MXU-row-occupancy lesson (measured): an MXU pass costs the same
-    whether it fills 32 rows or 128, so the hi and lo weight tables
-    are STACKED into one (4nb, 2a) operand — one pass at doubled row
-    fill instead of two at 2nb = 32 rows — and the split-add happens on
-    the fp32 outputs (bitwise identical: each output element is still
-    sum_hi + sum_lo after full contractions).
-
-    ``pg`` batches k2-planes through one grid step to amortise the
-    per-step fixed cost (block DMA latency, scratch staging) the
-    round-3 kg sweep measured as dominant once MXU rows are filled."""
-    g = pl.program_id(1)
-
-    @pl.when(g == 0)
-    def _():
-        blk = qn_ref[...]                   # (ap, pg, 2, b, k1n) int8
-        x2_scr[...] = blk.reshape(a, p, pg, 2, b, k1n).transpose(
-            2, 1, 3, 0, 4, 5)               # (pg, p, 2, a, b, k1n)
-
-    # per-pol dots on purpose: a pol-merged (…, p, b)-minor layout puts
-    # p = 2 on the SUBLANE axis — 4x vreg padding on the z temp and the
-    # out block (measured 4.9 vs 2.6 ms at the contract shape)
-    for pp in range(pg):
-        for pi in range(p):
-            z = jax.lax.dot_general(
-                eye_ref[...], x2_scr[pp, pi], (((1,), (3,)), ((), ())),
-                preferred_element_type=jnp.int32)    # (kg, 2, a, b)
-            zb = z.astype(jnp.bfloat16)              # exact: int8 range
-            for k1 in range(kg):
-                a2 = zb[k1].reshape(2 * a, b)
-                y2 = jax.lax.dot_general(
-                    w2_ref[pp, k1], a2, (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32)  # (4nb, b)
-                y = y2[:2 * nb] + y2[2 * nb:]
-                if qs:
-                    # C10's int8 beam product, quantised IN KERNEL: the
-                    # fp32 beam plane never touches HBM (the fp32 out
-                    # write + its wire decode were the measured bound
-                    # at 16 beams — 1.8 of 2.6 ms)
-                    y = jnp.clip(jnp.round(y * qs), -127, 127).astype(
-                        jnp.int8)
-                out_ref[pp, k1, pi] = y
-
-
-def beamform_native(qn: jax.Array, weights: jax.Array,
-                    impl: str = "auto", quant_scale: float = 0.0,
-                    _kg: int = None,
-                    _pg: int = None, _decode: bool = True,
-                    _pmerge: bool = None) -> jax.Array:
-    """Coherent beams STRAIGHT from the fused F-engine's native plane
-    layout ``qn: (a, p, m2, 2, b, k1n)`` int8 (no materialised
-    corner-turn; channel ``k = k2 + m2*k1``).  ``weights: (beam, a, K,
-    2)`` float32 in NATURAL channel order.  Returns wire-format
-    ``(beam, p, b, K, 2)`` float32 — numerically the same bf16-split
-    product as the wire-layout Pallas kernel.
-
-    ``quant_scale > 0`` quantises IN KERNEL to the contract's int8 beam
-    product (C10): ``clip(rint(y*scale), -127, 127)`` on exactly the
-    fp32 values the unquantised kernel returns (so it is bitwise the
-    XLA-level quantisation of the fp32 output), and the fp32 beam plane
-    never touches HBM — the fp32 out write + its wire decode are the
-    measured bound at 16 beams.  Single-device path only: partial beams
-    that still face a cross-shard psum must stay float (the step
-    quantises after the reduction).
-    """
-    rimpl = resolve_impl(impl)
-    a, p, m2, _, b, k1n = qn.shape
-    nb = weights.shape[0]
-    k = m2 * k1n
-    # footprint gate (as ops/xcorr.py xcorr_accumulate_native): the
-    # b-linear VMEM residents — double-buffered qn block + int8 x2
-    # relayout scratch — total 6*a*p*b*k1n bytes PER PLANE and don't
-    # shrink with the kg group scaling; bound them so gate-admitted
-    # shapes compile
-    per_plane = 6 * a * p * b * k1n
-    ok = (rimpl.startswith("pallas") and qn.dtype == jnp.int8
-          and k1n % 128 == 0 and b % 128 == 0 and (2 * a) % 8 == 0
-          and per_plane <= 64 * 1024 * 1024
-          and (2 * nb) % 8 == 0 and weights.shape[2] == k)
-    if not ok:
-        # decode native -> wire at XLA level, then the normal path:
-        # [a, p, k2, c, b, k1] -> [a, p, b, (k1, k2), c]
-        x = qn.transpose(0, 1, 4, 5, 2, 3).reshape(a, p, b, k, 2)
-        y = beamform(x, weights, impl=impl)
-        if quant_scale:
-            y = jnp.clip(jnp.round(y * quant_scale), -127, 127).astype(
-                jnp.int8)
-        return y
-    wr, wi = _split_ri(weights)
-    # natural k = k2 + m2*k1 -> (m2, k1n, nb, a) native-plane tables
-    wr4 = wr.reshape(nb, a, k1n, m2).transpose(3, 2, 0, 1)
-    wi4 = wi.reshape(nb, a, k1n, m2).transpose(3, 2, 0, 1)
-    w2 = jnp.concatenate([
-        jnp.concatenate([wr4, -wi4], axis=-1),
-        jnp.concatenate([wi4, wr4], axis=-1),
-    ], axis=2)                                   # (m2, k1n, 2nb, 2a)
-    wh = w2.astype(jnp.bfloat16)
-    wl = (w2 - wh.astype(jnp.float32)).astype(jnp.bfloat16)
-    # hi/lo stacked on the ROW axis: one (4nb, 2a) MXU pass per (k1,
-    # pol) at doubled row occupancy (see kernel docstring)
-    w2t = jnp.concatenate([wh, wl], axis=2)      # (m2, k1n, 4nb, 2a)
-    eye = jnp.asarray(np.eye(k1n, dtype=np.int8))
-    # k1 group: larger kg = fewer grid steps and taller relayout M.
-    # Measured on-chip at the contract shape (16 beams, 64 ants, 4k
-    # chans; bench/results/beamform_native_kg_*): the FULL k1 plane per
-    # grid step (kg = k1n = 128) ran 6.81 TF vs 5.77 at the old 256-row
-    # heuristic (kg = 32) — the per-step fixed cost dominates once the
-    # MXU rows are filled.  Default: the largest legal divisor of k1n
-    # whose kg-linear VMEM residents (out block, stacked hi/lo weights,
-    # per-pol relayout temporaries) fit a 48 MB budget alongside the
-    # fixed x2 scratch + double-buffered qn block; _kg overrides for
-    # on-chip sweeps.
-    pm = bool(_pmerge)
-    if _kg is None:
-        per_kg = (p * 2 * nb * b * 4      # out block (fp32)
-                  + 4 * nb * 2 * a * 2    # w2t block (bf16)
-                  # z s32 dot temp + bf16 cast: the pol-merged kernel
-                  # relayouts both pols in one dot, doubling the temp
-                  + 2 * a * (p * b if pm else b) * 6)
-        kg = 8
-        for d in range(k1n, 7, -1):
-            if k1n % d == 0 and (d % 8 == 0 or d == k1n) \
-                    and d * per_kg <= 48 * 1024 * 1024:
-                kg = d
-                break
-    else:
-        if k1n % _kg:
-            raise ValueError(f"_kg={_kg} must divide k1n={k1n}")
-        kg = _kg
-    # planes per grid step: amortise the per-step fixed cost while the
-    # plane-linear residents (double-buffered qn block + int8 scratch +
-    # out block + w2t) fit; _pg overrides for on-chip sweeps
-    if _pg is None:
-        pg = 1
-        per_pl = (per_plane
-                  + k1n * p * 2 * nb * b * 4       # out block / plane
-                  + k1n * 4 * nb * 2 * a * 2)      # w2t / plane
-        while (pg * 2 <= m2 and m2 % (pg * 2) == 0
-               and (pg * 2) * per_pl <= 48 * 1024 * 1024):
-            pg *= 2
-    else:
-        if m2 % _pg:
-            raise ValueError(f"_pg={_pg} must divide m2={m2}")
-        pg = _pg
-    qn2 = qn.reshape(a * p, m2, 2, b, k1n)
-    out_dtype = jnp.int8 if quant_scale else jnp.float32
-    kern = _beam_native_kernel_pmerge if pm else _beam_native_kernel
-    out_block = ((pg, kg, 2 * nb, p * b) if pm
-                 else (pg, kg, p, 2 * nb, b))
-    out_sh = ((m2, k1n, 2 * nb, p * b) if pm
-              else (m2, k1n, p, 2 * nb, b))
-    scr_sh = ((pg, 2, a, p, b, k1n) if pm
-              else (pg, p, 2, a, b, k1n))
-    out = pl.pallas_call(
-        functools.partial(kern, a=a, p=p, b=b, k1n=k1n,
-                          kg=kg, nb=nb, pg=pg,
-                          qs=float(quant_scale)),
-        grid=(m2 // pg, k1n // kg),
-        in_specs=[
-            pl.BlockSpec((a * p, pg, 2, b, k1n),
-                         lambda k2, g: (0, k2, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((kg, k1n), lambda k2, g: (g, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((pg, kg, 4 * nb, 2 * a),
-                         lambda k2, g: (k2, g, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(out_block,
-                               lambda k2, g: ((k2, g, 0, 0) if pm
-                                              else (k2, g, 0, 0, 0)),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(out_sh, out_dtype),
-        scratch_shapes=[pltpu.VMEM(scr_sh, jnp.int8)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=128 * 1024 * 1024),
-        interpret=(rimpl == "pallas_interpret"),
-    )(qn2, eye, w2t)
-    if not _decode:
-        # bench/attribution only: the raw kernel layout, isolating the
-        # wire-decode transpose's share of the measured wall
-        return out
-    if pm:
-        # (m2, k1n, [yr;yi](2, nb), p, b) -> wire (nb, p, b, k, 2)
-        out6 = out.reshape(m2, k1n, 2, nb, p, b)
-        return out6.transpose(3, 4, 5, 1, 0, 2).reshape(nb, p, b, k, 2)
-    # (m2, k1n, p, [yr;yi](2, nb), b) -> wire (nb, p, b, k, 2)
-    out6 = out.reshape(m2, k1n, p, 2, nb, b)
-    return out6.transpose(4, 2, 5, 1, 0, 3).reshape(nb, p, b, k, 2)
-
-
-def incoherent_sum_native(qn: jax.Array) -> jax.Array:
-    """C11 on the native plane layout: ``sum_ant |x|^2`` -> wire-order
-    ``(p, b, K)`` float32.  The reduce runs on the native layout (XLA
-    fuses it with the producer); only the small (p, b, K) RESULT is
-    transposed to natural channel order."""
-    x = qn.astype(jnp.float32)
-    inc = jnp.sum(x * x, axis=(0, 3))            # (p, m2, b, k1n)
-    return jnp.moveaxis(inc, 1, 3).reshape(
-        inc.shape[0], inc.shape[2], -1)   # (p, b, K) with k = k1*m2+k2
-
-
-def beamform(x: jax.Array, weights: jax.Array,
-             impl: str = "auto") -> jax.Array:
+def beamform(x: jax.Array, weights: jax.Array) -> jax.Array:
     """``y[e,p,b,k] = sum_a w[e,a,k] * x[a,p,b,k]``.
 
     ``x: (ant, pol, b, k, 2)`` int8/float32 wire format (or complex);
@@ -375,16 +40,6 @@ def beamform(x: jax.Array, weights: jax.Array,
     """
     xr, xi = _split_ri(x)
     wr, wi = _split_ri(weights)
-    rimpl = resolve_impl(impl)
-    a, p, b, k = xr.shape
-    nb = wr.shape[0]
-    # Pallas wants lane-tileable operands; int8 samples are exact in the
-    # kernel's bf16 cast, so only quantised (int8) inputs take it
-    if (rimpl.startswith("pallas") and x.dtype == jnp.int8
-            and (p * b) % 128 == 0 and (2 * a) % 8 == 0
-            and 2 * nb >= 8):
-        return _beamform_pallas(xr, xi, wr, wi,
-                                interpret=(rimpl == "pallas_interpret"))
 
     def mm(w_, x_):
         return jnp.einsum("eak,apbk->epbk", w_, x_, precision=_P)

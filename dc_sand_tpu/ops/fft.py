@@ -1,8 +1,8 @@
 """Real->complex channelizer FFT (C4 in SURVEY.md §2.3).
 
-XLA's TPU FFT already runs from VMEM at memory-bound speed for these sizes,
-so this stays an ``rfft`` call (SURVEY.md C4: "jnp.fft.rfft first"); a Pallas
-radix kernel is only warranted if profiling shows XLA off the roofline.
+This stays an ``rfft`` call (SURVEY.md C4: "jnp.fft.rfft first"), which
+XLA hands to the GPU's FFT library; a hand-written kernel is only warranted
+if a profile shows it far from its roofline (ROADMAP A3).
 Golden semantics: :func:`dc_sand_tpu.golden.chain.channelize`.
 """
 

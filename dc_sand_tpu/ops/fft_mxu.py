@@ -1,9 +1,9 @@
-"""Matmul-formulated real FFT — the channelizer FFT on the MXU.
+"""Matmul-formulated real FFT — the channelizer FFT as matrix products.
 
-Measured on this chip, XLA's ``rfft`` runs on the VPU at ~1.5 ms for the
-benchmark F-engine shape and dominates the pipeline; a Cooley-Tukey
-split ``M = M1*M2`` expressed as two batched matmuls + a twiddle
-multiply rides the MXU instead:
+A candidate replacement for :func:`dc_sand_tpu.ops.fft.channelize`
+(ROADMAP A3): a Cooley-Tukey split ``M = M1*M2`` expressed as two
+batched matmuls + a twiddle multiply, so the FFT runs on the matrix
+units instead of a library FFT:
 
     x[n1 + M1*n2]  (reshape to [n2, n1])
     Y[n1, k2] = sum_n2 x[n2, n1] * W_M2^(n2 k2)      (matmul over n2)
@@ -12,7 +12,7 @@ multiply rides the MXU instead:
 
 Real input + keeping only bins k < M/2 (the channelizer drops Nyquist)
 means the output matmul needs only ``M1/2`` rows of the outer DFT
-matrix.  ~6x fewer MACs than a dense DFT and every MAC is MXU work.
+matrix.  ~6x fewer MACs than a dense DFT and every MAC is matmul work.
 
 Precision: fp32 matmuls with HIGHEST precision keep the >50 dB contract
 bound with huge margin (verified vs numpy float64 rfft).
@@ -32,11 +32,11 @@ _P = jax.lax.Precision.HIGHEST
 
 
 def _factor(m: int) -> tuple:
-    """Pick M1 (outer) * M2 (inner) = m, both MXU-friendly."""
+    """Pick M1 (outer) * M2 (inner) = m, both matmul-friendly."""
     for m1 in (64, 32, 128, 16, 8):
         if m % m1 == 0 and m // m1 >= 8:
             return m1, m // m1
-    raise ValueError(f"FFT size {m} not factorable for the MXU path")
+    raise ValueError(f"FFT size {m} not factorable for the matmul path")
 
 
 @functools.lru_cache(maxsize=8)
@@ -96,7 +96,7 @@ def rfft_mxu(x: jax.Array) -> jax.Array:
 
 
 def channelize_mxu(fir_out: jax.Array, n_chans: int) -> jax.Array:
-    """Drop-in for :func:`dc_sand_tpu.ops.fft.channelize` on the MXU."""
+    """Drop-in for :func:`dc_sand_tpu.ops.fft.channelize` as matmuls."""
     if fir_out.shape[-1] != 2 * n_chans:
         raise ValueError(
             f"FFT length {fir_out.shape[-1]} != 2*n_chans={2 * n_chans}")

@@ -5,48 +5,23 @@ Golden semantics: :func:`dc_sand_tpu.golden.chain.pfb_fir`:
 
     ``y[s, b, n] = sum_t w[t*M + n] * x[s, (b+t)*M + n]``
 
-Two implementations:
-
-* ``jnp`` — frames + windowed sum; XLA fuses the 16 strided adds.  Used on
-  CPU and as the correctness reference.
-* ``pallas`` — the TPU-native kernel.  Design (TPU-first, not a CUDA
-  translation):
-
-  - Input lives in HBM as ``(S, F, M)`` int8 frames; the kernel walks the
-    grid ``(S, NB)`` with ``TB`` output spectra per step, **reading every
-    HBM byte exactly once**: each step DMAs only the ``TB`` *new* frames
-    (double-buffered, prefetching step ``b+1`` during step ``b``'s compute)
-    while the ``taps-1`` overlap-save boundary frames are carried in a VMEM
-    history scratch — the single-chip analog of the halo exchange the
-    time-sharded pipeline does over ICI (BASELINE.json:5).
-  - Accumulation is float32 on the VPU (the >50 dB bound forbids bf16).
-  - At the contract's rates the op is VPU-compute-bound, not HBM-bound:
-    16 fp32 MACs/byte is ~13x the machine-balance of a v5e (~819 GB/s HBM).
-    Either bound is far above the 13.7 Gsamp/s/chip real-time floor
-    (BASELINE.md derived table); the bench harness reports % of both
-    rooflines.
+Frames + windowed sum: XLA fuses the ``taps`` strided multiply-adds into
+one loop fusion that reads int8 and writes float32.  Accumulation is
+float32 (the >50 dB bound forbids bf16).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from ._dispatch import resolve_impl
 
 __all__ = ["pfb_fir"]
 
 
-def pfb_fir(x: jax.Array, window: jax.Array, taps: int, fft_size: int,
-            *, impl: str = "auto") -> jax.Array:
+def pfb_fir(x: jax.Array, window: jax.Array, taps: int,
+            fft_size: int) -> jax.Array:
     """Apply the polyphase FIR.  ``x: (..., T)`` int8/float, ``T % M == 0``;
     returns float32 ``(..., B, M)`` with ``B = T//M - (taps-1)``."""
-    impl = resolve_impl(impl)
     m = fft_size
     t_len = x.shape[-1]
     if t_len % m:
@@ -56,141 +31,8 @@ def pfb_fir(x: jax.Array, window: jax.Array, taps: int, fft_size: int,
     if b_out <= 0:
         raise ValueError("input shorter than the FIR window")
     w = jnp.asarray(window, dtype=jnp.float32).reshape(taps, m)
-    frames = x.reshape(x.shape[:-1] + (n_frames, m))
-    if impl == "jnp":
-        return _pfb_fir_jnp(frames, w, taps, b_out)
-    return _pfb_fir_pallas(frames, w, taps,
-                           interpret=(impl == "pallas_interpret"))
-
-
-def _pfb_fir_jnp(frames: jax.Array, w: jax.Array, taps: int,
-                 b_out: int) -> jax.Array:
-    f32 = frames.astype(jnp.float32)
-    out = jnp.zeros(frames.shape[:-2] + (b_out, frames.shape[-1]),
-                    dtype=jnp.float32)
+    f32 = x.reshape(x.shape[:-1] + (n_frames, m)).astype(jnp.float32)
+    out = jnp.zeros(f32.shape[:-2] + (b_out, m), dtype=jnp.float32)
     for t in range(taps):
         out = out + w[t] * f32[..., t:t + b_out, :]
     return out
-
-
-# ----------------------------------------------------------------------
-# Pallas kernel
-# ----------------------------------------------------------------------
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _pick_tile(b_out: int, taps_pad: int) -> int:
-    """Largest of {128, 64, 32, 16} dividing b_out and >= taps_pad, else 0."""
-    for tb in (128, 64, 32, 16):
-        if tb >= taps_pad and b_out % tb == 0:
-            return tb
-    return 0
-
-
-def _pfb_kernel(x_hbm, w_ref, out_ref, new_buf, hist_buf, hist_stage, sems,
-                *, taps: int, taps_pad: int, tb: int, nb: int):
-    """One grid step = TB output spectra of stream s.
-
-    TPU tiling constraints shape this kernel (Mosaic rejects VMEM row
-    slices not 8-aligned):
-
-    * the carried history is ``taps_pad = round_up(taps, 8)`` frames, so
-      the history-update slice ``new[tb-taps_pad : tb]`` is aligned;
-    * per-tap windows come from a circular ``pltpu.roll`` followed by the
-      aligned slice ``[0:tb]`` instead of an unaligned ``buf[t:t+tb]``;
-    * the prototype window is shaped ``(taps, 1, m)`` so tap selection
-      indexes the untiled leading axis.
-
-    Frame bookkeeping: buf row r holds frame ``b*tb + r``; output i of
-    this tile is ``sum_t w[t] * buf[i+t]``.
-    """
-    s = pl.program_id(0)
-    b = pl.program_id(1)
-
-    def new_dma(tile_idx, slot):
-        return pltpu.make_async_copy(
-            x_hbm.at[s, pl.ds(taps_pad + tile_idx * tb, tb)],
-            new_buf.at[slot],
-            sems.at[slot],
-        )
-
-    @pl.when(b == 0)
-    def _():
-        # Stage the first taps_pad history frames and start tile 0's DMA.
-        hist_dma = pltpu.make_async_copy(
-            x_hbm.at[s, pl.ds(0, taps_pad)], hist_stage, sems.at[2])
-        hist_dma.start()
-        new_dma(0, 0).start()
-        hist_dma.wait()
-        hist_buf[...] = hist_stage[...].astype(jnp.float32)
-
-    # Prefetch the next tile while computing this one (double buffer).
-    @pl.when(b + 1 < nb)
-    def _():
-        new_dma(b + 1, (b + 1) % 2).start()
-
-    slot = b % 2
-    new_dma(b, slot).wait()
-
-    new_f32 = new_buf[slot].astype(jnp.float32)          # (tb, m)
-    buf = jnp.concatenate([hist_buf[...], new_f32], axis=0)  # (taps_pad+tb, m)
-    rows = taps_pad + tb
-    acc = w_ref[0, 0] * buf[0:tb]
-    for t in range(1, taps):
-        shifted = pltpu.roll(buf, rows - t, axis=0)      # shifted[r]=buf[r+t]
-        acc = acc + w_ref[t, 0] * shifted[0:tb]
-    out_ref[0] = acc
-
-    # Carry the last taps_pad frames as history for the next tile.
-    hist_buf[...] = new_f32[tb - taps_pad:tb]
-
-
-def _pfb_fir_pallas(frames: jax.Array, w: jax.Array, taps: int,
-                    *, interpret: bool) -> jax.Array:
-    lead = frames.shape[:-2]
-    n_frames, m = frames.shape[-2:]
-    b_out = n_frames - (taps - 1)
-    s = int(np.prod(lead)) if lead else 1
-    taps_pad = _round_up(taps, 8)
-    tb = _pick_tile(b_out, taps_pad)
-    if tb == 0 or taps < 2 or m % 128:
-        # Shapes the kernel doesn't tile; fall back to the XLA path.
-        return _pfb_fir_jnp(frames, w, taps, b_out)
-    nb = b_out // tb
-
-    x = frames.reshape(s, n_frames, m)
-    # The kernel reads frames in aligned tiles of tb starting at taps_pad,
-    # overrunning the true stream by taps_pad-taps+1 frames: pad with
-    # zeros (never used in any output).  The pad copy only exists on
-    # this STANDALONE kernel; the production streaming path (the fused
-    # kernel's frames I/O) takes history and chunk as separate aligned
-    # refs and never concatenates or pads.
-    pad = taps_pad + nb * tb - n_frames
-    if pad:
-        x = jnp.concatenate(
-            [x, jnp.zeros((s, pad, m), x.dtype)], axis=1)
-
-    kernel = functools.partial(_pfb_kernel, taps=taps, taps_pad=taps_pad,
-                               tb=tb, nb=nb)
-    out = pl.pallas_call(
-        kernel,
-        grid=(s, nb),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),  # frames stay in HBM
-            pl.BlockSpec((taps, 1, m), lambda s_, b_: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, tb, m), lambda s_, b_: (s_, b_, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((s, b_out, m), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((2, tb, m), x.dtype),        # double-buffered input
-            pltpu.VMEM((taps_pad, m), jnp.float32),  # carried FIR history
-            pltpu.VMEM((taps_pad, m), x.dtype),      # history staging
-            pltpu.SemaphoreType.DMA((3,)),
-        ],
-        interpret=interpret,
-    )(x, w.reshape(taps, 1, m))
-    return out.reshape(lead + (b_out, m))

@@ -2,9 +2,8 @@
 
 Golden semantics: :func:`dc_sand_tpu.golden.chain.fine_delay_fringe`.
 Pure elementwise complex64 work — XLA fuses this into the surrounding
-FFT/requant stages, which is exactly what we want on TPU (SURVEY.md C5:
-"fused elementwise"); a dedicated Pallas kernel would only add a
-materialisation boundary.
+FFT/requant stages (SURVEY.md C5: "fused elementwise"); a dedicated
+kernel would only add a materialisation boundary.
 """
 
 from __future__ import annotations

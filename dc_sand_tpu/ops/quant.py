@@ -3,9 +3,9 @@
 Golden semantics: :func:`dc_sand_tpu.golden.chain.requantize` — complex
 gain multiply, round-half-even, saturate to [-127, 127].
 
-TPU representation of "complex int8": a trailing axis of length 2 holding
+Representation of "complex int8": a trailing axis of length 2 holding
 (re, im) int8 — complex integer dtypes don't exist in XLA, and this layout
-feeds the X-engine's int8 MXU path directly (SURVEY.md C8).  Elementwise;
+feeds the X-engine's s8 x s8 -> s32 dots directly (SURVEY.md C8).  Elementwise;
 XLA fuses it into the phase-rotation stage.
 """
 

@@ -8,7 +8,7 @@ detection stages).  For dual-pol beam voltages (x, y):
     I = |x|^2 + |y|^2        Q = |x|^2 - |y|^2
     U = 2 Re(x y*)           V = 2 Im(x y*)
 
-Elementwise VPU work, fused by XLA into the beamformer output.
+Elementwise work, fused by XLA into the beamformer output.
 """
 
 from __future__ import annotations

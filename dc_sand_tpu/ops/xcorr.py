@@ -4,53 +4,35 @@ Golden semantics: :func:`dc_sand_tpu.golden.chain.xcorr` over the canonical
 :func:`~dc_sand_tpu.golden.chain.baseline_pairs` ordering (2080 baselines x
 4 pol products at 64 ants, BASELINE.json:5,9,10).
 
-TPU-first design: the CMAC is expressed as a *batched int8 matmul on the
-MXU* — per channel, with A = Ar + j*Ai the (antpol, time) int8 matrix,
+The CMAC is a *batched int8 matrix product* — per channel, with
+A = Ar + j*Ai the (antpol, time) int8 matrix,
 
     V = A A^H  =  (Ar Ar^T + Ai Ai^T)  +  j (Ai Ar^T - Ar Ai^T)
 
-computed as ONE stacked s8 x s8 -> s32 matmul A2 @ A2^T with
-A2 = [Ar; Ai] (256 x T at 64 dual-pol antennas — exactly the MXU's
-native tile).  This replaces the reference's hand-written CUDA
-CMAC/tensor-core kernels (SURVEY.md C8) with the TPU's systolic array;
-integration over the time axis happens *inside* the matmul's contraction
-at full int32 precision.
+computed as s8 x s8 -> s32 ``dot_general`` calls batched over channels;
+integration over the time axis happens *inside* the product's
+contraction at full int32 precision, so the visibilities are exact.
 
 The streaming path (:func:`xcorr_accumulate`, used by ``make_step``)
 carries ONE PACKED (k, ap, ap) int32 plane as the integration
 accumulator: vr = Ar Ar^T + Ai Ai^T is SYMMETRIC and
 vi = Ai Ar^T - Ar Ai^T is ANTISYMMETRIC with a zero diagonal, so the
 upper triangle (incl. diagonal) holds vr and the strict lower triangle
-holds vi with zero information loss (see :func:`acc_shape`).  That is
-half the round-3 two-block [vr; vi] carry — and the accumulator HBM
-read+write per chunk was the MEASURED bottleneck of the native CMAC
-kernel (ablation at the 64-ant 4k shape: 4.9 ms of the 6.0 ms call was
-DMA) — plus half the checkpoint and half the SP cross-shard dump-sum.
-Baselines are extracted (and the triangles unpacked) ONCE per
-accumulator dump (:func:`extract_vis` in the runner), not per chunk —
-per SURVEY.md C8/C9.  On production shapes a Pallas kernel accumulates
-in place (``input_output_aliases``): per grid step the int8 spectra
-tile and the int32 accumulator tile meet in VMEM, so HBM sees the
-accumulator exactly once per chunk instead of once for the product plus
-once for the add.
+holds vi with zero information loss (see :func:`acc_shape`).  Baselines
+are extracted (and the triangles unpacked) ONCE per accumulator dump
+(:func:`extract_vis` in the runner), not per chunk — per SURVEY.md C8/C9.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from dc_sand_tpu.golden.chain import baseline_pairs
-from dc_sand_tpu.ops._dispatch import resolve_impl
 
 __all__ = ["xcorr", "xcorr_full", "extract_baselines", "extract_vis",
-           "xcorr_accumulate", "xcorr_accumulate_a2",
-           "xcorr_accumulate_native", "acc_shape"]
+           "xcorr_accumulate", "acc_shape"]
 
 
 def _vr_vi_operands(ar: jax.Array, ai: jax.Array):
@@ -62,12 +44,10 @@ def _vr_vi_operands(ar: jax.Array, ai: jax.Array):
         vi = Ai Ar^T - Ar Ai^T  =  [Ai | Ar] [Ar | -Ai]^T
 
     — each ONE matmul contracting over 2b columns.  Same MAC count as
-    the round-2 (2ap, 2ap) stacked-block form, but the integration
-    accumulator (and its HBM read+write per chunk, the measured
-    bottleneck of the native CMAC kernel at the 64-ant 4k shape) is
-    HALF the size: the discarded ArAi^T/AiAr^T sub-blocks were only
-    ever consumed as these two combinations.  int32 addition is
-    associative, so the contraction regrouping is exact.
+    a (2ap, 2ap) stacked-block form, but the products (and the
+    accumulator they feed) are HALF the size: the ArAi^T/AiAr^T
+    sub-blocks are only ever consumed as these two combinations.  int32
+    addition is associative, so the contraction regrouping is exact.
 
     Negating int8 ``ai`` is safe: the quantiser saturates to
     [-127, 127], so -128 (whose negation would wrap) never occurs.
@@ -89,13 +69,7 @@ def xcorr_full(q: jax.Array) -> jax.Array:
     ap = n_ants * n_pols
     a = q.reshape(k, ap, b, 2)
     cr, cil, cir = _vr_vi_operands(a[..., 0], a[..., 1])
-
-    def bdot(x, y):
-        return jax.lax.dot_general(
-            x, y, dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.int32)
-
-    return jnp.stack([bdot(cr, cr), bdot(cil, cir)], axis=-1)
+    return jnp.stack([_bdot(cr, cr), _bdot(cil, cir)], axis=-1)
 
 
 def extract_baselines(full: jax.Array, n_ants: int,
@@ -123,92 +97,30 @@ def acc_shape(n_ants: int, n_pols: int, n_chans: int) -> tuple:
 
     and :func:`extract_vis` reconstructs ``vr[r, c] = acc[c, r]`` /
     ``vi[r, c] = -acc[c, r]`` for the other triangle at dump cadence.
-    Packing is an elementwise int32 select on the MXU dot outputs —
-    exact — and int32 addition keeps the accumulate linear, so the SP
-    cross-shard dump sum works on the packed form unchanged.  Quarter
-    the round-2 (k, 2ap, 2ap) carry: the accumulator HBM read+write per
-    chunk (the measured native-CMAC bottleneck), the checkpoint, and
-    the SP dump-sum wire all shrink with it."""
+    Packing is an elementwise int32 select on the dot outputs — exact —
+    and int32 addition keeps the accumulate linear, so the SP
+    cross-shard dump sum works on the packed form unchanged.  A quarter
+    of a (k, 2ap, 2ap) carry: the accumulator's read+write per chunk,
+    the checkpoint and the SP dump-sum wire all shrink with it."""
     ap = n_ants * n_pols
     return (n_chans, ap, ap)
 
 
-def _pack_mask(ap: int, kernel: bool = False):
+def _pack_mask(ap: int):
     """Boolean (ap, ap) upper-triangle-inclusive mask: True where the
-    packed plane holds vr (r <= c), False where it holds vi (r > c).
-    ``kernel=True`` builds it from ``broadcasted_iota`` (Mosaic needs
-    >=2-D iota; also keeps the mask a traced value inside Pallas)."""
-    if kernel:
-        r = jax.lax.broadcasted_iota(jnp.int32, (ap, ap), 0)
-        c = jax.lax.broadcasted_iota(jnp.int32, (ap, ap), 1)
-        return r <= c
+    packed plane holds vr (r <= c), False where it holds vi (r > c)."""
     idx = np.arange(ap)
     return jnp.asarray(idx[:, None] <= idx[None, :])
 
 
-def _cmac_kernel(q_ref, acc_ref, out_ref, *, kt, ap):
-    # q_ref: (kt, 2ap, b) int8; acc_ref/out_ref: (kt, ap, ap) int32
-    # packed planes (aliased, accumulated in place in VMEM).  Four
-    # (ap, b) s8 dots with the vr-add / vi-sub in int32 (Mosaic has no
-    # int8 vector subtraction, so the -Ai column-stacked form can't
-    # lower), then one select packs vr into the upper triangle and vi
-    # below (see acc_shape).
-    mask = _pack_mask(ap, kernel=True)
-    for c in range(kt):
-        ar, ai = q_ref[c, :ap], q_ref[c, ap:]
-
-        def dot(x, y):
-            return jax.lax.dot_general(
-                x, y, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32)
-
-        dr = dot(ar, ar) + dot(ai, ai)
-        di = dot(ai, ar) - dot(ar, ai)
-        out_ref[c] = acc_ref[c] + jnp.where(mask, dr, di)
+def _bdot(x: jax.Array, y: jax.Array) -> jax.Array:
+    """Channel-batched ``x @ y^T`` over the spectra axis, s8 x s8 -> s32."""
+    return jax.lax.dot_general(
+        x, y, dimension_numbers=(((2,), (2,)), ((0,), (0,))),
+        preferred_element_type=jnp.int32)
 
 
-def _xcorr_accumulate_pallas(acc: jax.Array, a2: jax.Array,
-                             interpret: bool = False) -> jax.Array:
-    """acc (k, ap, ap) int32 += packed [vr|vi] plane per channel, in place.
-
-    ``a2: (k, 2ap, b) int8`` stacked [Ar; Ai].  Channel tiles of ``kt``
-    ride the grid; the accumulator tile is read, bumped and written once
-    (donated via ``input_output_aliases``).
-    """
-    k, tap, b = a2.shape
-    ap = tap // 2
-    kt = None
-    for cand in (8, 4, 2, 1):
-        # VMEM per step: q tile + stacked operand copies + 2x acc tile
-        # (+ dot temp) — keep << 16M
-        if k % cand == 0 and cand * tap * (4 * b + 6 * tap) \
-                <= 8 * 1024 * 1024:
-            kt = cand
-            break
-    if kt is None:
-        # even a single-channel tile exceeds the VMEM budget (huge
-        # tap*b): signal the caller to take the jnp path rather than
-        # launching a kernel that fails at compile
-        return None
-    return pl.pallas_call(
-        functools.partial(_cmac_kernel, kt=kt, ap=ap),
-        grid=(k // kt,),
-        in_specs=[
-            pl.BlockSpec((kt, tap, b), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((kt, ap, ap), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((kt, ap, ap), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((k, ap, ap), jnp.int32),
-        input_output_aliases={1: 0},
-        interpret=interpret,
-    )(a2, acc)
-
-
-def xcorr_accumulate(acc: jax.Array, q: jax.Array,
-                     impl: str = "auto") -> jax.Array:
+def xcorr_accumulate(acc: jax.Array, q: jax.Array) -> jax.Array:
     """One chunk of X-engine integration into the packed plane.
 
     ``acc: (k, ap, ap) int32`` packed [vr upper | vi lower] (see
@@ -219,546 +131,8 @@ def xcorr_accumulate(acc: jax.Array, q: jax.Array,
     k, n_ants, n_pols, b, _ = q.shape
     ap = n_ants * n_pols
     a = q.reshape(k, ap, b, 2)
-    a2 = jnp.concatenate([a[..., 0], a[..., 1]], axis=1)  # (k, 2ap, b)
-    return xcorr_accumulate_a2(acc, a2, impl=impl)
-
-
-def xcorr_accumulate_a2(acc: jax.Array, a2: jax.Array,
-                        impl: str = "auto") -> jax.Array:
-    """Same as :func:`xcorr_accumulate` on a prebuilt stacked operand
-    ``a2: (k, 2ap, b) int8`` ([Ar; Ai] rows) — the form the fused
-    F-engine's NATIVE layout produces in one transpose (the per-channel
-    ordering of ``k`` is the caller's business; extraction unpermutes at
-    dump cadence)."""
-    impl = resolve_impl(impl)
-    _, tap, b = a2.shape
-    ap = tap // 2
-    # Pallas wants lane/sublane-tileable operands; small test shapes ride
-    # the jnp path (same math, XLA batched matmul)
-    if impl.startswith("pallas") and tap % 16 == 0 and b % 128 == 0:
-        out = _xcorr_accumulate_pallas(
-            acc, a2, interpret=(impl == "pallas_interpret"))
-        if out is not None:
-            return out
-    cr, cil, cir = _vr_vi_operands(a2[:, :ap], a2[:, ap:])
-
-    def bdot(x, y):
-        return jax.lax.dot_general(
-            x, y, dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.int32)
-
-    return acc + jnp.where(_pack_mask(ap), bdot(cr, cr), bdot(cil, cir))
-
-
-def _cmac_native_kernel(keep_ref, qn_ref, eye_ref, acc_ref, out_ref,
-                        z_scr, *, ap, bc, k1n, kg, bt, ablate=(),
-                        m2major=False, partmajor=False, unroll=True):
-    """Fused relayout + CMAC for one (k2-plane, b-tile, k1-group) grid step.
-
-    The native F-engine layout has channel k1 on the LANE axis, but the
-    CMAC needs per-channel (ap, b) matrices — a relayout XLA performs
-    as a ~117 GB/s HBM transpose pass (4.6 ms/chunk at the 64-ant 4k
-    shape).  Here the relayout happens on the MXU instead: contracting
-    an identity against the lane axis moves it to the FRONT
-    (``z[k1c, s, c, t] = sum_k1 I[k1c, k1] qn[s, c, t, k1]``) — each
-    output is a ONE-HOT sum of int8-range values, so the whole pass is
-    exact in s8xs8->s32.
-
-    Everything rides the MXU's int8 path (2x the bf16 MACs/s; the s32
-    accumulation removes any fp32 exactness bound — headroom is the
-    int32 bound b <= ~66k enforced upstream by the runner's dump
-    cadence).  Two occupancy lessons are baked in, each measured at the
-    64-ant 4k contract shape:
-
-    * The relayout runs ONCE per k2-plane with ALL k1n rows (M = k1n =
-      full MXU height), tiled over b to bound the int32 dot temporary,
-      landing int8 in VMEM scratch.  The round-2 kernel relayouted per
-      kg-group (M = kg, as low as 16/128 rows) — an MXU pass costs the
-      same regardless of row fill, so that wasted 7/8 of every
-      identity pass and made the relayout ~4x the CMAC's tile-ops.
-    * The CMAC is FOUR (ap, b) s8 dots per channel with the vr-add /
-      vi-sub in int32 (the column-stacked single-dot variant needs
-      -Ai, and Mosaic has no int8 vector subtraction — arith.subi on
-      i8 fails to legalize), then ONE select packs vr's upper triangle
-      and vi's strict lower into a single (ap, ap) plane (see
-      :func:`acc_shape`) — vr is symmetric and vi antisymmetric, so
-      this is lossless, and it HALVES the accumulator DMA, which the
-      round-3 ablation measured as the kernel's dominant cost (4.9 of
-      6.0 ms at the contract shape was DMA, not MXU).
-    * The spectra axis ``b`` tiles over a MIDDLE grid axis in ``bc``
-      sub-chunks with the k2-plane's FULL packed accumulator
-      (k1n, ap, ap) resident in VMEM across all of them — the
-      accumulator meets HBM once per *call*, not once per 512-spectra
-      chunk.  The round-3 ablation measured the acc read+write as the
-      dominant cost at the contract shape, and it scales 1/nt here
-      (int32 addition is associative, so the b regrouping is exact).
-    """
-    t = pl.program_id(1)
-
-    # qn block — fetched once per (k2, t); the b-tile axis t is the
-    # INNERMOST grid axis, so the acc/out plane windows (indexed by k2
-    # only) follow the canonical accumulate-across-innermost pattern
-    # Mosaic pipelines: the next (k2, t) qn fetch overlaps this step's
-    # relayout+CMAC, and the plane flushes once per k2.  (The earlier
-    # (k2, t, g) grid with a k1-group axis measured fully SERIAL —
-    # wall == DMA + MXU exactly.)  The (ap, 2) -> (2, ap) transpose
-    # permutes MAJOR dims only and keeps the scratch minor-dims as
-    # (ap, b*) — a (2, b) minor layout would pad every sublane tile 4x.
-    if "relayout" not in ablate:
-        for tb in range(bc // bt):
-            sl = slice(tb * bt, (tb + 1) * bt)
-            if partmajor:
-                # (2, ap, bt, k1n) straight from the block — the
-                # part-major qn layout puts (re, im) OUTERMOST so the
-                # (ap, 2) -> (2, ap) major-dim shuffle disappears
-                x2 = qn_ref[:, :, 0, sl, :]
-            else:
-                blk = (qn_ref[0, :, :, sl, :] if m2major
-                       else qn_ref[:, 0, :, sl, :])
-                x2 = blk.transpose(1, 0, 2, 3)     # (2, ap, bt, k1n)
-            zt = jax.lax.dot_general(
-                eye_ref[...], x2, (((1,), (3,)), ((), ())),
-                preferred_element_type=jnp.int32)  # (k1n,2,ap,bt)
-            z_scr[:, :, :, tb * bt:(tb + 1) * bt] = zt.astype(
-                jnp.int8)
-
-    # integration-window reset rides into the accumulate (keep = 0
-    # zeroes the carry) — a lax.cond at the XLA level costs a full
-    # copy of the accumulator on its identity arm.  The carry base is
-    # the HBM accumulator only on the FIRST b-tile; later tiles chain
-    # through the VMEM-resident out window.
-    keep = keep_ref[0]
-    first = t == 0
-    if "cmac" in ablate:
-        # attribution mode: skip the per-channel dots, still touch the
-        # acc blocks (isolates relayout + DMA cost)
-        @pl.when(first)
-        def _():
-            out_ref[...] = acc_ref[...] * keep
-        return
-    mask = _pack_mask(ap, kernel=True)
-
-    def body(j, carry):
-        # ONE (2ap, bc) x (2ap, bc)^T s8 dot per channel: the quadrant
-        # matrix [[ArAr', ArAi'], [AiAr', AiAi']] — same MAC count as
-        # the four (ap, bc) dots, one MXU dispatch at full 2ap-row
-        # fill, and the vr/vi combinations become s32 quadrant adds
-        # (no int8 negation anywhere; int32 addition regrouping is
-        # exact, so this is bitwise the four-dot form)
-        z2 = z_scr[j].reshape(2 * ap, bc)
-        quad = jax.lax.dot_general(
-            z2, z2, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32)      # (2ap, 2ap) s32
-        dr = quad[:ap, :ap] + quad[ap:, ap:]
-        di = quad[ap:, :ap] - quad[:ap, ap:]
-        # out_ref is undefined before its first write at t == 0; the
-        # where() discards that lane, so the read is safe
-        base = jnp.where(first, acc_ref[0, j] * keep, out_ref[0, j])
-        out_ref[0, j] = base + jnp.where(mask, dr, di)
-        return carry
-
-    # STATIC channel loop by default: static z_scr/out indices let
-    # Mosaic schedule across channels — measured 10.04 vs 10.58 ms at
-    # b=2048 (s9 probe2) against the dynamic fori_loop, at the cost of
-    # a k1n-times bigger program (compiles fine at k1n=128)
-    if unroll:
-        for j in range(k1n):
-            body(j, 0)
-    else:
-        jax.lax.fori_loop(0, k1n, body, 0, unroll=1)
-
-
-def _cmac_native_kernel_pipe(keep_ref, qn_hbm, eye_ref, acc_ref, out_ref,
-                             qn_buf, z_scr, quad_scr, sems, *, ap, bc,
-                             k1n, nt, bt, unroll=True, epi_hoist=False):
-    """Multi-tile CMAC with a MANUALLY double-buffered qn fetch.
-
-    Same math as :func:`_cmac_native_kernel` (bitwise), different DMA
-    choreography: the s9 multi-tile kernel measured wall == DMA + MXU
-    summed (10.04 ms at b=2048 vs the 6.0 ms DMA floor) — Mosaic's
-    automatic qn block pipelining was NOT overlapping the 16.8 MB
-    per-step fetch with compute (the double-buffered block pair plus
-    plane-resident accumulator and relayout temporaries crowd VMEM).
-    Here qn stays in HBM (``pl.ANY``) and the kernel streams (k2, t)
-    windows through a two-slot VMEM buffer itself, starting the NEXT
-    window's copy (including the (k2+1, 0) window across a plane
-    boundary, overlapping the plane flush) before waiting on the
-    current one — the F-engine kernel's proven pattern
-    (fengine_fused.py new_dma/start_last).
-    """
-    k2, t = pl.program_id(0), pl.program_id(1)
-    m2 = pl.num_programs(0)
-    i = k2 * nt + t
-    slot = jax.lax.rem(i, 2)
-
-    def dma(pk2, pt, pslot):
-        return pltpu.make_async_copy(
-            qn_hbm.at[:, pk2, :, pl.ds(pt * bc, bc), :],
-            qn_buf.at[pslot], sems.at[pslot])
-
-    @pl.when(i == 0)
-    def _():
-        dma(0, 0, 0).start()
-
-    # next window: (k2, t+1), or (k2+1, 0) across the plane boundary
-    @pl.when(i + 1 < m2 * nt)
-    def _():
-        last = t + 1 == nt
-        nk2 = jnp.where(last, k2 + 1, k2)
-        ntile = jnp.where(last, 0, t + 1)
-        dma(nk2, ntile, jax.lax.rem(i + 1, 2)).start()
-
-    dma(k2, t, slot).wait()
-
-    # relayout: identity-dot the lane axis to the front (see
-    # _cmac_native_kernel; qn window is (ap, 2, bc, k1n) in VMEM)
-    for tb in range(bc // bt):
-        sl = slice(tb * bt, (tb + 1) * bt)
-        x2 = qn_buf[slot][:, :, sl, :].transpose(1, 0, 2, 3)
-        zt = jax.lax.dot_general(
-            eye_ref[...], x2, (((1,), (3,)), ((), ())),
-            preferred_element_type=jnp.int32)      # (k1n, 2, ap, bt)
-        z_scr[:, :, :, tb * bt:(tb + 1) * bt] = zt.astype(jnp.int8)
-
-    keep = keep_ref[0]
-    first = t == 0
-    mask = _pack_mask(ap, kernel=True)
-
-    if epi_hoist:
-        # PACK-EPILOGUE HOIST (r5): the per-(step, channel) epilogue —
-        # base select, keep-mul, triangle-pack select, accumulate —
-        # measured as part of the ~5-6 ms serial per-plane COMPUTE that
-        # keeps the kernel off its 6.0 ms DMA floor (DESIGN.md §4).
-        # Here each t-tile only bumps an UNPACKED per-plane (dr, di)
-        # scratch pair (two int32 adds per channel), and the pack +
-        # carried-accumulator base run ONCE per plane at the last tile.
-        # int32 addition is associative/commutative, so the regrouping
-        # is bitwise the chained form.
-        @pl.when(first)
-        def _():
-            quad_scr[...] = jnp.zeros(quad_scr.shape, jnp.int32)
-
-        def body(j, carry):
-            z2 = z_scr[j].reshape(2 * ap, bc)
-            quad = jax.lax.dot_general(
-                z2, z2, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32)
-            quad_scr[j, 0] += quad[:ap, :ap] + quad[ap:, ap:]
-            quad_scr[j, 1] += quad[ap:, :ap] - quad[:ap, ap:]
-            return carry
-
-        if unroll:
-            for j in range(k1n):
-                body(j, 0)
-        else:
-            jax.lax.fori_loop(0, k1n, body, 0, unroll=1)
-
-        @pl.when(t == nt - 1)
-        def _():
-            def pack(j, carry):
-                out_ref[0, j] = acc_ref[0, j] * keep + jnp.where(
-                    mask, quad_scr[j, 0], quad_scr[j, 1])
-                return carry
-            if unroll:
-                for j in range(k1n):
-                    pack(j, 0)
-            else:
-                jax.lax.fori_loop(0, k1n, pack, 0, unroll=1)
-        return
-
-    def body(j, carry):
-        # quadrant form — see _cmac_native_kernel.body
-        z2 = z_scr[j].reshape(2 * ap, bc)
-        quad = jax.lax.dot_general(
-            z2, z2, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32)
-        dr = quad[:ap, :ap] + quad[ap:, ap:]
-        di = quad[ap:, :ap] - quad[:ap, ap:]
-        base = jnp.where(first, acc_ref[0, j] * keep, out_ref[0, j])
-        out_ref[0, j] = base + jnp.where(mask, dr, di)
-        return carry
-
-    if unroll:
-        for j in range(k1n):
-            body(j, 0)
-    else:
-        jax.lax.fori_loop(0, k1n, body, 0, unroll=1)
-
-
-def _cmac_native_kernel_single(keep_ref, qn_ref, eye_ref, acc_ref,
-                               out_ref, z_scr, *, ap, bc, k1n, kg, bt,
-                               ablate=(), m2major=False,
-                               partmajor=False):
-    """Single-b-tile variant (nt == 1): the round-3 shape — acc/out as
-    per-(k2, g) blocks on a 2-D grid.  Measured 4.4 ms vs the
-    plane-resident variant's 6.0 ms at the b=512 contract chunk (the
-    smaller revisited-free out blocks pipeline their DMA with the next
-    grid step's compute; a VMEM-resident plane buys nothing when each
-    plane is visited once)."""
-    g = pl.program_id(1)
-
-    @pl.when(g == 0)
-    def _():
-        if "relayout" not in ablate:
-            for tb in range(bc // bt):
-                sl = slice(tb * bt, (tb + 1) * bt)
-                if partmajor:
-                    x2 = qn_ref[:, :, 0, sl, :]
-                else:
-                    blk = (qn_ref[0, :, :, sl, :] if m2major
-                           else qn_ref[:, 0, :, sl, :])
-                    x2 = blk.transpose(1, 0, 2, 3)
-                zt = jax.lax.dot_general(
-                    eye_ref[...], x2, (((1,), (3,)), ((), ())),
-                    preferred_element_type=jnp.int32)
-                z_scr[:, :, :, tb * bt:(tb + 1) * bt] = zt.astype(
-                    jnp.int8)
-
-    keep = keep_ref[0]
-    if "cmac" in ablate:
-        out_ref[...] = acc_ref[...] * keep
-        return
-    mask = _pack_mask(ap, kernel=True)
-    for j in range(kg):
-        # quadrant form — see _cmac_native_kernel.body
-        z2 = z_scr[g * kg + j].reshape(2 * ap, bc)
-        quad = jax.lax.dot_general(
-            z2, z2, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32)
-        dr = quad[:ap, :ap] + quad[ap:, ap:]
-        di = quad[ap:, :ap] - quad[:ap, ap:]
-        out_ref[0, j] = acc_ref[0, j] * keep + jnp.where(mask, dr, di)
-
-
-def xcorr_accumulate_native(acc: jax.Array, qn: jax.Array,
-                            reset=None, impl: str = "auto",
-                            _ablate: tuple = (),
-                            _m2major: bool = False,
-                            _partmajor: bool = False,
-                            _bc: int = None,
-                            _bt: int = None,
-                            _unroll: bool = True,
-                            _noalias: bool = None,
-                            _qn_pipe: bool = None,
-                            _epi_hoist: bool = None) -> jax.Array:
-    """Streaming X-engine integration STRAIGHT from the fused F-engine's
-    native plane layout (no materialised corner-turn).
-
-    ``acc: (K, ap, ap) int32`` packed planes in NATIVE channel order
-    (k2-major, ``K = m2 * k1n``); ``qn: (a, p, m2, 2, b, k1n) int8`` as produced by
-    ``f_engine(..., layout="native")`` (possibly after an ``all_to_all``
-    that split the m2 axis).  Bitwise-identical to building ``a2`` with
-    the XLA transpose and calling :func:`xcorr_accumulate_a2`; the
-    Pallas kernel does the relayout on the MXU in VMEM, replacing the
-    chunk's costliest HBM pass (SURVEY.md:146-150 C8 native kernel).
-
-    ``reset`` (optional traced bool) zeroes the carried accumulator for
-    a new integration window INSIDE the kernel — at the XLA level that
-    conditional costs a full defensive copy of the accumulator.
-
-    ``_ablate`` (bench attribution ONLY — wrong results by design):
-    "relayout" skips the identity-dot corner-turn, "cmac" skips the
-    per-channel dots; each isolates the other's share plus DMA.
-    """
-    for flag in _ablate:
-        if flag not in ("relayout", "cmac"):
-            raise ValueError(f"unknown ablate flag {flag!r}")
-    impl = resolve_impl(impl)
-    if _m2major and _partmajor:
-        raise ValueError("_m2major and _partmajor are exclusive probes")
-    if _m2major:
-        # bench/attribution probe: qn arrives pre-arranged
-        # (m2, ap, 2, b, k1n) so every k2-plane block is one contiguous
-        # HBM slab (isolates the strided-fetch share of the DMA cost)
-        m2, ap, _, b, k1n = qn.shape
-    elif _partmajor:
-        # probe: qn arrives (2, ap, m2, b, k1n) — (re, im) OUTERMOST, so
-        # the kernel's per-b-tile (ap, 2) -> (2, ap) major-dim shuffle
-        # disappears (isolates the transpose share of the relayout cost)
-        _, ap, m2, b, k1n = qn.shape
-    else:
-        a, p, m2, _, b, k1n = qn.shape
-        ap = a * p
-    # spectra-tile pick: the largest 128-multiple divisor of b whose
-    # VMEM residents fit — the double-buffered qn tile
-    # (2*ap*bc*k1n int8 x2), the int8 z relayout scratch
-    # (2*ap*bc*k1n), the per-b-tile int32 relayout temporary
-    # (8*ap*k1n*bt), plus the PLANE-RESIDENT packed accumulator in+out
-    # blocks (2*4*k1n*ap^2).  Flagship ap=128, bc=512, k1n=128:
-    # 50 + 17 + 17 MB, measured good under the kernel limit.
-    # relayout sub-tile: bounds the identity dot's int32 temporary
-    # (8*ap*k1n*bt bytes); bigger bt = fewer, wider identity dots
-    bt = _bt or 128
-    fixed = 8 * ap * k1n * bt + 8 * k1n * ap * ap
-    if _bt is not None and (_bt % 128 or (_bc or 512) % _bt):
-        raise ValueError(f"_bt={_bt} must be a %128 divisor of bc")
-    if _bc is not None:
-        if b % _bc or _bc % 128:
-            raise ValueError(f"_bc={_bc} must divide b={b}, %128")
-        bc = _bc
-    else:
-        # multi-tile regime: bc=256 measured fastest at the contract
-        # shape (r5 sweep, b=2048: 8.8 ms vs 9.8 at bc=512 auto; 8.7
-        # with the manual qn pipe) — the smaller window leaves VMEM for
-        # real double-buffering and shortens the critical path; b<1024
-        # keeps the 512 target so bc==b dispatches the measured-faster
-        # single-tile kernel
-        tgt = min(b, 512 if b < 1024 else 256)
-        bc = tgt - tgt % 128
-        while bc >= 128 and (b % bc or
-                             6 * ap * bc * k1n + fixed
-                             > 96 * 1024 * 1024):
-            bc -= 128
-    ok = (impl.startswith("pallas") and k1n % 128 == 0 and bc >= 128
-          and ap % 8 == 0 and acc.shape[0] == m2 * k1n)
-    keep = (jnp.int32(1) if reset is None
-            else 1 - jnp.asarray(reset).astype(jnp.int32))
-    if not ok:
-        if _m2major:
-            raise ValueError("_m2major probe needs a kernel-eligible "
-                             "shape")
-        if reset is not None:
-            acc = acc * keep
-        a2 = qn.transpose(2, 5, 3, 0, 1, 4).reshape(
-            m2 * k1n, 2 * ap, b)
-        return xcorr_accumulate_a2(acc, a2, impl=impl)
-    # k1-group size: bounds the per-step CMAC unroll only (the acc
-    # blocks are plane-resident and the relayout is plane-wide into
-    # scratch regardless); kg = 16 keeps the unroll at 64 dots
-    kg = min(16, k1n)
-    while k1n % kg:
-        kg -= 1
-    qn2 = (qn if _m2major or _partmajor
-           else qn.reshape(ap, m2, 2, b, k1n))
-    if _m2major:
-        qn_block = (1, ap, 2, bc, k1n)
-        qn_ix2 = lambda k2, g: (k2, 0, 0, 0, 0)          # noqa: E731
-        qn_ix3 = lambda k2, t: (k2, 0, 0, t, 0)          # noqa: E731
-    elif _partmajor:
-        qn_block = (2, ap, 1, bc, k1n)
-        qn_ix2 = lambda k2, g: (0, 0, k2, 0, 0)          # noqa: E731
-        qn_ix3 = lambda k2, t: (0, 0, k2, t, 0)          # noqa: E731
-    else:
-        qn_block = (ap, 1, 2, bc, k1n)
-        qn_ix2 = lambda k2, g: (0, k2, 0, 0, 0)          # noqa: E731
-        qn_ix3 = lambda k2, t: (0, k2, 0, t, 0)          # noqa: E731
-    eye = jnp.asarray(np.eye(k1n, dtype=np.int8))
-    acc4 = acc.reshape(m2, k1n, ap, ap)
-    nt = b // bc
-    if nt == 1:
-        # per-(k2, g) acc blocks on a 2-D grid: measured faster when
-        # each plane is visited once (see _cmac_native_kernel_single)
-        out = pl.pallas_call(
-            functools.partial(_cmac_native_kernel_single, ap=ap, bc=bc,
-                              k1n=k1n, kg=kg, bt=bt,
-                              ablate=tuple(_ablate), m2major=_m2major,
-                              partmajor=_partmajor),
-            grid=(m2, k1n // kg),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(qn_block, qn_ix2,
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((k1n, k1n), lambda k2, g: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, kg, ap, ap),
-                             lambda k2, g: (k2, g, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((1, kg, ap, ap),
-                                   lambda k2, g: (k2, g, 0, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct(acc4.shape, jnp.int32),
-            scratch_shapes=[pltpu.VMEM((k1n, 2, ap, bc), jnp.int8)],
-            input_output_aliases={3: 0},
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=128 * 1024 * 1024),
-            interpret=(impl == "pallas_interpret"),
-        )(keep.reshape(1), qn2, eye, acc4)
-        return out.reshape(acc.shape)
-    if _qn_pipe is None:
-        # r5 measured default: the manual two-slot qn stream edges the
-        # auto pipeline at every multi-tile point (126.3 vs 124.6 TOPS
-        # at b=2048/bc=256; 112.1 vs 100.6 at b=1024) and never loses;
-        # probe layouts and ablations keep the auto kernel
-        _qn_pipe = nt > 1
-    if _qn_pipe and not (_m2major or _partmajor or _ablate):
-        # manual two-slot qn streaming (see _cmac_native_kernel_pipe);
-        # probe layouts and ablations stay on the auto-pipelined kernel
-        if _epi_hoist is None:
-            # r5 sweep: NEUTRAL-to-worse at every point (8.93 vs 8.67 ms
-            # at b=2048, 5.29 vs 5.24 at b=1024) — the chained form's
-            # base-select is scalar-predicated, so the per-step epilogue
-            # was already ~4 VPU ops and the hoist only adds scratch
-            # pressure.  Knob kept for attribution.
-            _epi_hoist = False
-        out = pl.pallas_call(
-            functools.partial(_cmac_native_kernel_pipe, ap=ap, bc=bc,
-                              k1n=k1n, nt=nt, bt=bt, unroll=_unroll,
-                              epi_hoist=_epi_hoist),
-            grid=(m2, nt),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pl.ANY),
-                pl.BlockSpec((k1n, k1n), lambda k2, t: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, k1n, ap, ap),
-                             lambda k2, t: (k2, 0, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((1, k1n, ap, ap),
-                                   lambda k2, t: (k2, 0, 0, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct(acc4.shape, jnp.int32),
-            scratch_shapes=[
-                pltpu.VMEM((2, ap, 2, bc, k1n), jnp.int8),
-                pltpu.VMEM((k1n, 2, ap, bc), jnp.int8),
-                # unpacked per-plane (dr, di) accumulator for the
-                # epilogue hoist (tiny dummy when the hoist is off)
-                pltpu.VMEM((k1n, 2, ap, ap) if _epi_hoist
-                           else (1, 2, 8, 128), jnp.int32),
-                pltpu.SemaphoreType.DMA((2,)),
-            ],
-            input_output_aliases=(
-                {} if (_noalias or _noalias is None) else {3: 0}),
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=128 * 1024 * 1024),
-            interpret=(impl == "pallas_interpret"),
-        )(keep.reshape(1), qn2, eye, acc4)
-        return out.reshape(acc.shape)
-    out = pl.pallas_call(
-        functools.partial(_cmac_native_kernel, ap=ap, bc=bc, k1n=k1n,
-                          kg=kg, bt=bt, ablate=tuple(_ablate),
-                          m2major=_m2major, partmajor=_partmajor,
-                          unroll=_unroll),
-        grid=(m2, nt),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(qn_block, qn_ix3,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k1n, k1n), lambda k2, t: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, k1n, ap, ap),
-                         lambda k2, t: (k2, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, k1n, ap, ap),
-                               lambda k2, t: (k2, 0, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(acc4.shape, jnp.int32),
-        scratch_shapes=[pltpu.VMEM((k1n, 2, ap, bc), jnp.int8)],
-        # aliasing saves the transient second accumulator ALLOCATION
-        # (traffic is identical either way) but its write-before-read
-        # ordering SERIALISES the multi-tile pipeline — measured
-        # 10.6 vs 11.75 ms at b=2048 (the s9 sweep) — so nt > 1
-        # defaults to no alias (the acc is a small share of the
-        # call's traffic there); nt == 1 keeps the alias
-        input_output_aliases=(
-            {} if (_noalias or _noalias is None) else {3: 0}),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=128 * 1024 * 1024),
-        interpret=(impl == "pallas_interpret"),
-    )(keep.reshape(1), qn2, eye, acc4)
-    return out.reshape(acc.shape)
+    cr, cil, cir = _vr_vi_operands(a[..., 0], a[..., 1])
+    return acc + jnp.where(_pack_mask(ap), _bdot(cr, cr), _bdot(cil, cir))
 
 
 def extract_vis(acc: jax.Array, n_ants: int, n_pols: int) -> jax.Array:

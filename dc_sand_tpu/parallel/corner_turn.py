@@ -1,53 +1,27 @@
-"""Corner-turn (C7): antenna-major -> channel-major all-to-all over ICI.
+"""Corner-turn (C7): antenna-major -> channel-major all-to-all.
 
 The reference world ships this over 40/100 GbE SPEAD multicast between F
-and X hosts (SURVEY.md §2.1); TPU-natively it is a single
-``lax.all_to_all`` inside ``shard_map`` (BASELINE.json:5,10) riding ICI.
-Golden semantics: :func:`dc_sand_tpu.golden.chain.corner_turn` (a pure
-transpose).
-
-Derived traffic at the contract point (BASELINE.md): ~13.7 GB/s/chip —
-well inside v5e ICI.  If profiling ever shows XLA's all-to-all off the
-roofline, the drop-in upgrade is a Pallas ``make_async_remote_copy`` ring
-(SNIPPETS.md [2] pattern); C15's microbenchmarks measure both.
+and X hosts (SURVEY.md §2.1); here it is a single ``lax.all_to_all``
+inside ``shard_map`` (BASELINE.json:5,10), which XLA hands to NCCL on a
+GPU mesh.  Golden semantics: :func:`dc_sand_tpu.golden.chain.corner_turn`
+(a pure transpose).
 """
 
 from __future__ import annotations
 
 import jax
-import jax.numpy as jnp
 
 __all__ = ["corner_turn_all_to_all"]
 
 
-def corner_turn_all_to_all(q_local: jax.Array, axis_name: str, *,
-                           impl: str = "xla", axis_names=None,
-                           interpret: bool = False) -> jax.Array:
+def corner_turn_all_to_all(q_local: jax.Array, axis_name: str) -> jax.Array:
     """Inside shard_map: re-shard quantised spectra ant-major -> chan-major.
 
-    ``q_local: (ant_local, pol, b, k_full, 2)`` (this chip's antennas, all
-    channels) -> ``(ant_full, pol, b, k_local, 2)`` (all antennas, this
-    chip's channel block).  Channel blocks are contiguous: chip i owns
-    channels ``[i*k_full/D, (i+1)*k_full/D)``.
-
-    ``impl="xla"`` is one ``lax.all_to_all``; ``impl="pallas"`` drives
-    n-1 direct point-to-point DMAs per chip
-    (:func:`dc_sand_tpu.parallel.remote_dma.all_to_all_pallas` —
-    requires ``axis_names``).  Bitwise-equal; benchmarked against each
-    other by ``bench/collectives.py``.
+    ``q_local: (ant_local, pol, b, k_full, 2)`` (this device's antennas,
+    all channels) -> ``(ant_full, pol, b, k_local, 2)`` (all antennas,
+    this device's channel block).  Channel blocks are contiguous: device
+    i owns channels ``[i*k_full/D, (i+1)*k_full/D)``.
     """
-    if impl == "pallas":
-        from dc_sand_tpu.parallel.remote_dma import all_to_all_pallas
-        n = jax.lax.axis_size(axis_name)
-        a_l, p, b, k, c = q_local.shape
-        k_l = k // n
-        xk = jnp.moveaxis(q_local, 3, 0)          # (k, a_l, p, b, 2)
-        out = all_to_all_pallas(xk, axis_name, axis_names,
-                                interpret=interpret)
-        # row-block s of `out` holds MY channel block from shard s;
-        # reassemble to (ant_full, pol, b, k_local, 2)
-        out = out.reshape((n, k_l, a_l, p, b, c))
-        return jnp.moveaxis(out, 1, 4).reshape((n * a_l, p, b, k_l, c))
     # split the channel axis (3) over devices, concatenate the antenna
     # axis (0): exactly the FX corner-turn.
     return jax.lax.all_to_all(q_local, axis_name, split_axis=3,

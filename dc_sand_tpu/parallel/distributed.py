@@ -1,16 +1,15 @@
-"""Multi-host SPMD entry (C15's DCN side).
+"""Multi-process SPMD entry (C15).
 
-On a pod slice every host runs the same program: call
-``init_distributed()`` first (reads the TPU env or explicit args), then
-build the mesh over ``jax.devices()`` (all chips, all hosts) — XLA routes
-intra-slice collectives over ICI and inter-host traffic over DCN
-(BASELINE.json:5).  The streaming runner then feeds each host only its
-local antennas' packets (``local_antenna_range``).
+With several processes every one runs the same program: call
+``init_distributed(coordinator, num_processes, process_id)`` first, then
+build the mesh over ``jax.devices()`` (all devices of all processes);
+XLA routes the collectives over NCCL (BASELINE.json:5).  The streaming
+runner then feeds each process only its local antennas' packets
+(``local_antenna_range``).
 
-This dev box has a single chip, so the multi-host path is validated by
-the CPU-mesh tests and ``dryrun_multichip``; on real hardware the same
-code runs unchanged — the scaling-efficiency measurement at 1 chip /
-1 host / N hosts (BASELINE.json:5) uses ``cli bench`` per host.
+The multi-process path is validated by the CPU-mesh tests
+(``tests/test_distributed.py`` spawns CPU workers) and
+``dryrun_multichip``.
 """
 
 from __future__ import annotations
@@ -27,8 +26,9 @@ def init_distributed(coordinator: Optional[str] = None,
                      process_id: Optional[int] = None) -> dict:
     """Initialise jax.distributed (no-op when single-process).
 
-    With no args, jax auto-detects TPU pod metadata; args override for
-    manual bring-up (e.g. ``coordinator="host0:8476"``).
+    Nothing tells JAX of a cluster on its own: pass the coordinator
+    address (e.g. ``"localhost:8476"``), the process count and this
+    process's id.  With no arguments this is the single-process no-op.
     """
     if num_processes is not None and num_processes > 1 or coordinator:
         jax.distributed.initialize(coordinator_address=coordinator,

@@ -1,7 +1,7 @@
 """Overlap-save halo exchange (C14): the context-parallel analog.
 
-When the sample stream is sharded over a ``time`` mesh axis, chip i's
-first output spectrum needs the trailing ``(taps-1)*M`` samples of chip
+When the sample stream is sharded over a ``time`` mesh axis, device i's
+first output spectrum needs the trailing ``(taps-1)*M`` samples of device
 i-1's segment (BASELINE.json:5 "overlap-save FIR boundary samples
 exchanged via halo collectives") — structurally identical to
 ring-attention/context-parallel halo passing (SURVEY.md §5).  One
@@ -17,21 +17,13 @@ __all__ = ["halo_exchange_left"]
 
 
 def halo_exchange_left(x_local: jax.Array, halo_len: int,
-                       axis_name: str, *, impl: str = "xla",
-                       axis_names=None,
-                       interpret: bool = False) -> jax.Array:
+                       axis_name: str) -> jax.Array:
     """Inside shard_map: prepend the left neighbour's trailing samples.
 
     ``x_local: (..., t_local)`` -> ``(..., halo_len + t_local)``.  Shard 0
     (the stream head) gets zeros — the cold-start FIR history, matching
     the golden chain's convention that the first ``taps-1`` frames of the
-    whole stream are history.
-
-    ``impl="xla"`` is one neighbour ``lax.ppermute``; ``impl="pallas"``
-    issues the ring step straight to the DMA engines
-    (:func:`dc_sand_tpu.parallel.remote_dma.ring_permute_right` —
-    requires ``axis_names``, the full mesh axis tuple).  Both are
-    bitwise-equal; ``bench/collectives.py`` compares them per size.
+    whole stream are history.  One neighbour ``lax.ppermute``.
     """
     if x_local.shape[-1] < halo_len:
         raise ValueError(
@@ -42,13 +34,6 @@ def halo_exchange_left(x_local: jax.Array, halo_len: int,
     tail = x_local[..., -halo_len:]
     # send my tail to my right neighbour (i -> i+1); shard 0 receives
     # from nobody and must see zeros.
-    if impl == "pallas":
-        from dc_sand_tpu.parallel.remote_dma import ring_permute_right
-        halo = ring_permute_right(tail, axis_name, axis_names,
-                                  interpret=interpret)
-        idx = jax.lax.axis_index(axis_name)
-        halo = jnp.where(idx == 0, jnp.zeros_like(halo), halo)
-    else:
-        perm = [(i, i + 1) for i in range(n - 1)]
-        halo = jax.lax.ppermute(tail, axis_name, perm)
+    perm = [(i, i + 1) for i in range(n - 1)]
+    halo = jax.lax.ppermute(tail, axis_name, perm)
     return jnp.concatenate([halo, x_local], axis=-1)

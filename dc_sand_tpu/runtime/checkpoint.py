@@ -8,7 +8,7 @@ The delay/weight state is part of the carry on purpose: a resume with a
 off, not silently re-zero the polynomials — the golden-equivalence test
 drives exactly that case across a save/load boundary.
 
-Multi-process (pod) runners checkpoint PER HOST: each process saves its
+Multi-process runners checkpoint PER HOST: each process saves its
 ADDRESSABLE shards of the sharded carries (history, the visibility
 accumulator, beam weights) into its own ``{path}.proc{i}of{n}.npz``,
 keyed by shard index; restore reassembles the global arrays with
@@ -164,8 +164,8 @@ def load_state(runner, path: str) -> None:
         raise ValueError(
             f"checkpoint history shape {tuple(hist_shape)} != runner's "
             f"{want}{' (per-process shard)' if mp else ''} — saved "
-            "under a different step I/O convention (frames vs samples; "
-            "platform-dependent) or mesh layout")
+            "with a different delay lead-in, time sharding or mesh "
+            "layout")
     if mp:
         runner.history = _unpack_shards(z, "history", runner.history)
         runner.vis_acc = _unpack_shards(z, "vis_acc", runner.vis_acc)

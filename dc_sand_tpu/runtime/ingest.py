@@ -118,8 +118,7 @@ def unpack_10bit(packed: bytes, n_samples: int) -> np.ndarray:
     return out
 
 
-def multi_ingest_source(ingests, cfg=None, force: bool = True,
-                        frames_io: bool = None):
+def multi_ingest_source(ingests, force: bool = True):
     """Runner ``source`` over N assemblers sharding the antenna axis —
     the production layout (one :class:`NativeIngest` per NIC queue /
     antenna group, each fed from its own receiver thread), with coarse
@@ -131,25 +130,9 @@ def multi_ingest_source(ingests, cfg=None, force: bool = True,
     host, so the host-side cost stays at N slot-buffer transfers.  The
     previous call's slots are released first (the transfer is
     synchronous, so the device owns the bytes by then).
-
-    With ``cfg`` given and the runner in frames I/O (the fused fast
-    path), each part is reshaped to frame form ``(Aw*P, B, M)`` on the
-    HOST (a free view) before transfer, so the device-side concat
-    already has the kernel's layout and the runner's reshape is an
-    identity — no device relayout.  ``frames_io`` overrides the
-    convention when the consuming runner was built with a non-default
-    impl/delay mode (it must equal the runner's ``_frames_io``).
     """
     import jax
     import jax.numpy as jnp
-
-    frames = None
-    if cfg is not None:
-        if frames_io is None:
-            from dc_sand_tpu.models.pipeline import uses_frames_io
-            frames_io = uses_frames_io(cfg)
-        if frames_io:
-            frames = (cfg.spectra_per_chunk, 2 * cfg.n_chans)
 
     def source(_chunk_idx: int):
         if not force:
@@ -171,9 +154,6 @@ def multi_ingest_source(ingests, cfg=None, force: bool = True,
                         "multi_ingest_source(force=False): a worker's "
                         "tail chunk is incomplete")
                 borrowed.append(ing)
-                if frames is not None:
-                    aw, p, _t = view.shape
-                    view = view.reshape(aw * p, *frames)
                 parts.append(jnp.asarray(view))
         finally:
             # the transfers MUST complete before the slots return to

@@ -56,8 +56,7 @@ class FXRunner:
                  delay_model: Optional[DelayModel] = None,
                  gains: Optional[np.ndarray] = None,
                  weights: Optional[np.ndarray] = None,
-                 mesh=None, impl: str = "auto",
-                 coarse_on_host: bool = True):
+                 mesh=None, coarse_on_host: bool = True):
         self.cfg = cfg
         self.mode = mode_for(cfg)
         self.mesh = mesh
@@ -65,11 +64,10 @@ class FXRunner:
             cfg.n_ants, cfg.n_pols)
         self.max_delay = self.delay_model.max_delay
         # integer-sample (coarse) delay is a read-pointer offset: applied
-        # on the host feed path by default (the device-side int8 gather
-        # costs ~7.8 ms/chunk at 64 ants; see make_step docstring)
+        # on the host feed path by default (see make_step docstring)
         self.coarse_on_host = coarse_on_host and cfg.apply_delay
-        # multi-PROCESS SPMD (a pod: one runner per host, one global
-        # mesh): sharded step inputs must be global jax.Arrays — the
+        # multi-PROCESS SPMD (one runner per process, one global mesh):
+        # sharded step inputs must be global jax.Arrays — the
         # source feeds each host its LOCAL antennas' chunk and the
         # runner assembles the global array (SURVEY.md §2.3 DP row)
         self._mp = mesh is not None and jax.process_count() > 1
@@ -87,11 +85,11 @@ class FXRunner:
                 # multi-process SP: antennas over fx (= processes),
                 # sample stream over the PROCESS-LOCAL time axis — the
                 # ingest-locality layout (one host = its antennas'
-                # whole contiguous stream; its local chips split it in
-                # time and the halo rides ICI).  A time axis that
-                # crosses processes would make each host's addressable
-                # chunk slab non-contiguous AND put the per-chunk halo
-                # on DCN — refuse it rather than assemble it slowly.
+                # whole contiguous stream; its local devices split it in
+                # time).  A time axis that crosses processes would make
+                # each host's addressable chunk slab non-contiguous AND
+                # put the per-chunk halo between hosts — refuse it
+                # rather than assemble it slowly.
                 devs = mesh.devices   # (time, fx)
                 for f in range(devs.shape[1]):
                     if len({d.process_index for d in devs[:, f]}) != 1:
@@ -102,7 +100,7 @@ class FXRunner:
                             "antennas' contiguous stream; a time shard "
                             "crossing hosts would split that stream "
                             "across NICs and put the overlap-save halo "
-                            "on DCN")
+                            "between hosts")
                 t3 = P(FX_AXIS, None, TIME_AXIS)
                 self._sh = {
                     "history": NamedSharding(mesh, t3),
@@ -133,10 +131,8 @@ class FXRunner:
                 "single-process")
         dev_max_delay = 0 if self.coarse_on_host else self.max_delay
         self._step = make_step(cfg, window, max_delay=dev_max_delay,
-                               mesh=mesh, impl=impl,
-                               coarse_on_host=self.coarse_on_host)
+                               mesh=mesh, coarse_on_host=self.coarse_on_host)
         self._window = np.asarray(window)
-        self._impl = impl
         self._dev_max_delay = dev_max_delay
         self._scan_window = None   # built lazily by run_batched
         a, p, k = cfg.n_ants, cfg.n_pols, cfg.n_chans
@@ -147,16 +143,9 @@ class FXRunner:
         self.weights = jnp.asarray(
             weights if weights is not None
             else np.zeros((max(cfg.n_beams, 1), a, k, 2), np.float32))
-        from dc_sand_tpu.models.pipeline import (uses_frames_io,
-                                                 history_shape)
-        # frames I/O: carry/chunk cross the jit boundary in frame form
-        # (A*P, nf, M) so the fused kernel reads them as separate HBM
-        # refs — no [history|chunk] concat, no parameter relayout
-        self._frames_io = uses_frames_io(cfg, impl, self._dev_max_delay,
-                                         self.coarse_on_host)
+        from dc_sand_tpu.models.pipeline import history_len, zero_vis_acc
         self.history = jnp.zeros(
-            history_shape(cfg, self._dev_max_delay, self._frames_io),
-            jnp.int8)
+            (a, p, history_len(cfg, self._dev_max_delay)), jnp.int8)
         if self._mp:
             # carries/parameters as GLOBAL sharded arrays (the step's
             # in_specs); gains/reset stay host-numpy — fully-replicated
@@ -167,38 +156,28 @@ class FXRunner:
         self._host_tail = (np.zeros((a, p, self.max_delay), np.int8)
                            if self.coarse_on_host and self.max_delay
                            else None)
-        from dc_sand_tpu.models.pipeline import (zero_vis_acc,
-                                                 fx_channel_perm)
         self.vis_acc = zero_vis_acc(cfg)
         if self._mp and self.mode == "fx":
             self.vis_acc = self._put_full(self.vis_acc, "vis")
         if self.mode == "fx":
             # dump-time baseline extraction (jitted once; n_ants/n_pols
             # are static) — the accumulator itself carries the packed
-            # (k, ap, ap) triangle plane between chunks.  When the step
-            # keeps the fused kernel's native channel order, extraction
-            # also reorders channels back to natural (still only once
-            # per dump).
+            # (k, ap, ap) triangle plane between chunks.  SP fx carries
+            # one partial accumulator per time shard (leading axis); the
+            # cross-shard sum rides the dump cadence here, not the chunk
+            # cadence
             from dc_sand_tpu import ops as _ops
-            perm = fx_channel_perm(cfg, impl, mesh)
-            # SP fx carries one partial accumulator per time shard
-            # (leading axis); the cross-shard sum rides the dump
-            # cadence here, not the chunk cadence
-            _pre = ((lambda acc: acc.sum(axis=0))
-                    if cfg.time_shards > 1 else (lambda acc: acc))
-            if perm is None:
-                def _ex(acc):
-                    return _ops.extract_vis(_pre(acc), a, p)
-            else:
-                perm_j = jnp.asarray(perm)
 
-                def _ex(acc):
-                    return _ops.extract_vis(_pre(acc), a, p)[..., perm_j, :]
+            def _ex(acc):
+                if cfg.time_shards > 1:
+                    acc = acc.sum(axis=0)
+                return _ops.extract_vis(acc, a, p)
+
             if self._mp:
                 # dump-time all-gather: every host gets the full
-                # visibility set (np.asarray needs full addressability;
-                # the channel unpermute is a global op).  Dump cadence
-                # makes this cheap relative to the integration window.
+                # visibility set (np.asarray needs full addressability).
+                # Dump cadence makes this cheap relative to the
+                # integration window.
                 from jax.sharding import NamedSharding, PartitionSpec
                 self._extract = jax.jit(
                     _ex, out_shardings=NamedSharding(mesh,
@@ -237,10 +216,8 @@ class FXRunner:
         if not self._mp:
             return jnp.asarray(chunk)
         local = np.asarray(chunk)
-        rows = (self.cfg.n_ants * self.cfg.n_pols if self._frames_io
-                else self.cfg.n_ants)
         return jax.make_array_from_process_local_data(
-            self._sh["chunk"], local, (rows,) + local.shape[1:])
+            self._sh["chunk"], local, (self.cfg.n_ants,) + local.shape[1:])
 
     # ------------------------------------------------------------------
     def run(self, source: Callable[[int], np.ndarray], n_chunks: int,
@@ -310,7 +287,7 @@ class FXRunner:
         """Shared per-chunk host feed for ``run``/``run_batched`` (the
         paths are documented as semantically identical and must not
         drift): fault injection, delay-model evaluation, host-side
-        coarse delay, frames-I/O reshape, counter/clock bookkeeping.
+        coarse delay, counter/clock bookkeeping.
 
         Host-side coarse delay is a read-pointer offset into
         ``[tail | chunk]``; the tail carries the previous chunk's last
@@ -347,16 +324,6 @@ class FXRunner:
                 # view would pin the whole chunk-sized concat buffer
                 # between steps
                 self._host_tail = buf[..., -md:].copy()
-        if self._frames_io:
-            # (A, P, T) -> (A*P, B, M): a free row-major view; the
-            # device array then has exactly the layout the fused
-            # kernel's chunk ref wants.  Device-resident chunks
-            # (e.g. a multi-ingest gather assembled on device)
-            # reshape in place — never bounce through the host.
-            # (A = this process's LOCAL antennas under multi-process.)
-            shp = (n_ants_local * cfg.n_pols, b, 2 * cfg.n_chans)
-            chunk = (chunk.reshape(shp) if isinstance(chunk, jax.Array)
-                     else np.asarray(chunk).reshape(shp))
         self.counters.chunks_in += 1
         self.counters.samples_in += chunk.size
         self.counters.spectra_out += b
@@ -379,8 +346,7 @@ class FXRunner:
         ``n_spectra_per_acc / spectra_per_chunk`` chunks of a dump
         window are stacked on the host and processed by a
         ``lax.scan`` over the SAME step program, so the device runs
-        the whole window back to back (this is also exactly the
-        validated protocol the perf benches use).  Semantically
+        the whole window back to back.  Semantically
         identical to ``run`` — same carry, same drop bookkeeping, same
         dump extraction, proven bitwise by test — but per-chunk
         ``on_output`` is unavailable (nothing leaves the device mid-
@@ -407,8 +373,7 @@ class FXRunner:
         if self._scan_window is None:
             inner = make_step(cfg, self._window,
                               max_delay=self._dev_max_delay,
-                              mesh=self.mesh, impl=self._impl,
-                              donate=False,
+                              mesh=self.mesh, donate=False,
                               coarse_on_host=self.coarse_on_host)
 
             def window_fn(hist, acc, chunks, coarses, fracs, phases,

@@ -23,7 +23,16 @@ logger = logging.getLogger("dc_sand_tpu.verify")
 
 SNR_BOUND = 50.0
 
-__all__ = ["verify_config", "SNR_BOUND"]
+# ``verify_config`` keywords of the production-cadence check (``cli verify
+# <config> --production-cadence``): the config's own chunk/integration
+# cadence (fx64: 2048-spectra chunks, 8192 per dump), golden graded on all
+# pairs among a 12-antenna random subset — per-antenna float64 evaluation
+# keeps the golden chain ~13 GB (the all-antenna chain at this cadence
+# peaks >128 GB of host memory)
+PRODUCTION_CADENCE = dict(spectra_per_chunk=None, n_spectra_per_acc=None,
+                          golden_ants=12)
+
+__all__ = ["verify_config", "SNR_BOUND", "PRODUCTION_CADENCE"]
 
 
 def _golden_coarse_stream(cfg, stream, dm, n_chunks, ant_idx=None):
@@ -92,11 +101,10 @@ def _golden_spectra(cfg, stream, dm, gains, n_chunks, window,
 
 
 def verify_config(name: str, *, n_chunks: int = 4, scale: Optional[int] = None,
-                  mesh=None, impl: str = "auto", seed: int = 0,
+                  mesh=None, seed: int = 0,
                   spectra_per_chunk: Optional[int] = 16,
                   n_spectra_per_acc: Optional[int] = 32,
                   time_shards: int = 1,
-                  stage2: Optional[str] = None,
                   baseline_subset: Optional[int] = None,
                   golden_ants: Optional[int] = None,
                   beam_parallel: bool = False):
@@ -107,10 +115,10 @@ def verify_config(name: str, *, n_chunks: int = 4, scale: Optional[int] = None,
     ``mesh``: run the SPMD path over this mesh (config 4/5's sharded mode).
     ``spectra_per_chunk`` / ``n_spectra_per_acc``: clamp the streaming
     cadence for test-speed (defaults); pass ``None`` to run the config's
-    own production cadence (e.g. fx64 at 1024 spectra per dump).
+    own production cadence (e.g. fx64 at 8192 spectra per dump).
     ``baseline_subset``: compare only this many randomly-chosen
     baselines against golden — the float64 golden X-engine over ALL 2080
-    baselines at production cadence costs ~an hour on this host's 4
+    baselines at production cadence costs about an hour on four host
     cores, while the SNR statistic over a random baseline subset x all
     channels (~10^6 values) is equivalent; the device side always
     computes everything.
@@ -124,8 +132,6 @@ def verify_config(name: str, *, n_chunks: int = 4, scale: Optional[int] = None,
     ``baseline_subset``; the device still computes every baseline.
     """
     cfg = get_config(name)
-    if stage2 is not None:
-        cfg = cfg.replace(stage2=stage2)
     if scale is not None:
         cfg = scaled_for_test(cfg, n_chans=scale)
     if spectra_per_chunk is not None:
@@ -186,9 +192,8 @@ def verify_config(name: str, *, n_chunks: int = 4, scale: Optional[int] = None,
     if cfg.n_beams:
         weights = rng.normal(size=(cfg.n_beams, a, k, 2)).astype(np.float32)
 
-    # under a multi-PROCESS mesh (pod bring-up: `cli verify
-    # --distributed`) each host feeds only its local antennas, and
-    # coarse delay runs on DEVICE (the host-tail path is
+    # under a multi-PROCESS mesh each process feeds only its local
+    # antennas, and coarse delay runs on DEVICE (the host-tail path is
     # single-process; production uses ingest placement).  The synthetic
     # sky is seeded identically everywhere so the golden oracle below
     # still sees the full array.
@@ -199,7 +204,7 @@ def verify_config(name: str, *, n_chunks: int = 4, scale: Optional[int] = None,
         from dc_sand_tpu.parallel.distributed import local_antenna_range
         a_lo, a_hi = local_antenna_range(a)
     runner = FXRunner(cfg, window, delay_model=dm, gains=gains_ri,
-                      weights=weights, mesh=mesh, impl=impl,
+                      weights=weights, mesh=mesh,
                       coarse_on_host=not multiproc)
     outputs = []
     dumps, counters = runner.run(
@@ -225,9 +230,6 @@ def verify_config(name: str, *, n_chunks: int = 4, scale: Optional[int] = None,
     snrs: Dict[str, float] = {}
     if runner.mode == "fengine":
         # spectra ship as natural-order (a, p, b, K, 2) wire arrays
-        # (s10: the shaped decode is the FASTEST form at the 4k radix
-        # with paired-plane stores; the flat (b, 2K) byte view is a
-        # free np reshape for consumers that want it)
         got = np.concatenate([np.asarray(o["spectra"])
                               for o in outputs], axis=2)
         snrs["spectra"] = snr_db(spec_g, np_ri2c(got))

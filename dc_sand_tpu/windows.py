@@ -1,7 +1,7 @@
 """Polyphase filterbank prototype-window generation (pure NumPy).
 
-Shared by the float64 golden models (:mod:`dc_sand_tpu.golden`) and the TPU
-kernels (:mod:`dc_sand_tpu.ops`) so both sides filter with bit-identical
+Shared by the float64 golden models (:mod:`dc_sand_tpu.golden`) and the JAX
+ops (:mod:`dc_sand_tpu.ops`) so both sides filter with bit-identical
 coefficients.
 
 Contract: BASELINE.json:5 — "16-tap polyphase filterbank (Hann-windowed FIR

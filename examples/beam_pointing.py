@@ -16,14 +16,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if os.environ.get("JAX_PLATFORMS", "").lower() == "cpu":
-    # Some TPU plugins force-register regardless of JAX_PLATFORMS;
-    # honouring the env var requires re-pinning inside jax (conftest.py).
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_default_device", "cpu")
-
-
 def main() -> int:
     from dc_sand_tpu.config import get_config
     from dc_sand_tpu.golden.sources import cw_tone, quantize_adc
@@ -65,7 +57,7 @@ def main() -> int:
 
     runner = FXRunner(cfg, pfb_window(cfg.n_taps, cfg.fft_size),
                       delay_model=DelayModel.zeros(a, 1),
-                      weights=w, impl="jnp")
+                      weights=w)
     runner.run(lambda i: x, 1, on_output=on_output)
 
     coh = beams["coh"]

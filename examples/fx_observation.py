@@ -19,14 +19,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if os.environ.get("JAX_PLATFORMS", "").lower() == "cpu":
-    # Some TPU plugins force-register regardless of JAX_PLATFORMS;
-    # honouring the env var requires re-pinning inside jax (conftest.py).
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_default_device", "cpu")
-
-
 def main() -> int:
     from dc_sand_tpu.config import get_config
     from dc_sand_tpu.golden.chain import baseline_pairs
@@ -58,7 +50,7 @@ def main() -> int:
     dm = DelayModel.zeros(a, p, max_delay=md)
     dm.d0 = delays.astype(float)  # the correlator re-aligns the early arrivals
     runner = FXRunner(cfg, pfb_window(cfg.n_taps, cfg.fft_size),
-                      delay_model=dm, impl="jnp")
+                      delay_model=dm)
     dumps, counters = runner.run(
         lambda i: x[..., i * cfg.chunk_samples:
                     (i + 1) * cfg.chunk_samples], n_chunks)

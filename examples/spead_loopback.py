@@ -20,14 +20,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if os.environ.get("JAX_PLATFORMS", "").lower() == "cpu":
-    # Some TPU plugins force-register regardless of JAX_PLATFORMS;
-    # honouring the env var requires re-pinning inside jax (conftest.py).
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_default_device", "cpu")
-
-
 def main() -> int:
     from dc_sand_tpu.config import get_config
     from dc_sand_tpu.runtime import (DelayModel, FXRunner, NativeIngest,
@@ -62,7 +54,7 @@ def main() -> int:
     assert fill == 1.0 and (chunk == x).all(), "transport corrupted data"
 
     runner = FXRunner(cfg, pfb_window(cfg.n_taps, cfg.fft_size),
-                      delay_model=DelayModel.zeros(a, p), impl="jnp")
+                      delay_model=DelayModel.zeros(a, p))
     dumps, counters = runner.run(lambda i: chunk, 1)
 
     # --- onward: ship the dump as SPEAD too ---------------------------

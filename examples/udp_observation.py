@@ -25,14 +25,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if os.environ.get("JAX_PLATFORMS", "").lower() == "cpu":
-    # Some TPU plugins force-register regardless of JAX_PLATFORMS;
-    # honouring the env var requires re-pinning inside jax (conftest.py).
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_default_device", "cpu")
-
-
 def _drain(rx, want, timeout=5.0):
     t0 = time.monotonic()
     while rx.stats()["placed"] < want and time.monotonic() - t0 < timeout:
@@ -74,8 +66,7 @@ def main() -> int:
         assert (chunk == x[:, :, i * c:(i + 1) * c]).all()
         return chunk
 
-    runner = FXRunner(cfg, pfb_window(cfg.n_taps, cfg.fft_size),
-                      impl="jnp")
+    runner = FXRunner(cfg, pfb_window(cfg.n_taps, cfg.fft_size))
     t0 = time.perf_counter()
     dumps, counters = runner.run(source, n_chunks)
     wall = time.perf_counter() - t0

@@ -1,9 +1,9 @@
-"""Multi-PROCESS SPMD level: the missing rung between the single-process
-CPU-mesh tests and a real pod.
+"""Multi-PROCESS SPMD level: the rung between the single-process CPU-mesh
+tests and a multi-process GPU deployment.
 
 Two OS processes, each owning 2 virtual CPU devices, form one
 4-device mesh via ``jax.distributed`` (gloo collectives on CPU — the
-same program runs over ICI/DCN on a pod, SURVEY.md §2.3 collective
+same program runs over NCCL on GPUs, SURVEY.md §2.3 collective
 backend row) and run the sharded FX step end to end; each process
 verifies its own addressable output shards vs golden.
 """
@@ -60,11 +60,11 @@ def test_multiprocess_step(mode, n_proc=2, dev_per_proc=2):
 
 @pytest.mark.parametrize("config", ["fx64", "beam64"])
 def test_podsim_contract_mesh(config):
-    """v5e-16 deployment rehearsal: 4 processes x 4 virtual devices = the
-    16-device contract mesh (BASELINE.json:5), running the PRODUCTION
-    configs 4 and 5 (64 antennas dual-pol: corner-turn + CMAC + dump /
-    multi-beam + incoherent sum) through verify_config — the same entry
-    `cli verify --distributed` uses at pod bring-up.  Channel count is
+    """16-device deployment rehearsal: 4 processes x 4 virtual devices =
+    the 16-device contract mesh (BASELINE.json:5), running the
+    PRODUCTION configs 4 and 5 (64 antennas dual-pol: corner-turn + CMAC
+    + dump / multi-beam + incoherent sum) through verify_config — the
+    entry `cli verify` uses.  Channel count is
     CI-scaled; the sharding (4 ants/device, 8 chans/device
     post-corner-turn, beam psum) and every collective edge are the
     deployment's own."""

@@ -443,7 +443,7 @@ class TestAssembler:
             assert fill == 1.0
             return chunk
 
-        runner = FXRunner(cfg, pfb_window(4, 64), impl="jnp")
+        runner = FXRunner(cfg, pfb_window(4, 64))
         dumps, counters = runner.run(source, n_chunks)
         assert counters.dumps == n_chunks
         assert np.any(dumps[0].vis != 0)
@@ -474,14 +474,14 @@ class TestAssembler:
                     ing.submit(ai, 0, i * c,
                                data[2 * w + ai, 0,
                                     i * c:(i + 1) * c].tobytes())
-        src = multi_ingest_source(workers, cfg)
-        r1 = FXRunner(cfg, pfb_window(4, 64), impl="jnp")
+        src = multi_ingest_source(workers)
+        r1 = FXRunner(cfg, pfb_window(4, 64))
         dumps_m, _ = r1.run(src, n_chunks)
 
         def single(i):
             return data[:, :, i * c:(i + 1) * c]
 
-        r2 = FXRunner(cfg, pfb_window(4, 64), impl="jnp")
+        r2 = FXRunner(cfg, pfb_window(4, 64))
         dumps_s, _ = r2.run(single, n_chunks)
         for dm, ds in zip(dumps_m, dumps_s):
             np.testing.assert_array_equal(dm.vis, ds.vis)
@@ -536,7 +536,7 @@ class TestIngestDelay:
         # path A: runner's host-side coarse delay
         dm = DelayModel.zeros(2, 1, max_delay=md)
         dm.d0 = delays.astype(float)
-        ra = FXRunner(cfg, pfb_window(4, 64), delay_model=dm, impl="jnp")
+        ra = FXRunner(cfg, pfb_window(4, 64), delay_model=dm)
         dumps_a, _ = ra.run(
             lambda i: raw[..., i * cfg.chunk_samples:
                           (i + 1) * cfg.chunk_samples], n_chunks)
@@ -555,7 +555,7 @@ class TestIngestDelay:
             return ing.retire(force=True)[0]
 
         rb = FXRunner(cfg, pfb_window(4, 64),
-                      delay_model=DelayModel.zeros(2, 1), impl="jnp")
+                      delay_model=DelayModel.zeros(2, 1))
         dumps_b, _ = rb.run(src, n_chunks)
         np.testing.assert_array_equal(dumps_a[0].vis, dumps_b[0].vis)
 
@@ -783,7 +783,7 @@ class TestE2EAtRate:
         from dc_sand_tpu.bench.ingest_bench import bench_e2e_atrate
         r = bench_e2e_atrate(n_ants=4, n_pols=2, n_chans=256,
                              spectra=32, n_chunks=4,
-                             packet_samples=4096, impl="jnp")
+                             packet_samples=4096)
         assert r.extra["dumps_verified"] is True
         assert len(r.extra["dump_snrs_db"]) == 2
         assert all(s > 50 for s in r.extra["dump_snrs_db"])

@@ -47,8 +47,7 @@ class TestFringeStopping:
         dm = DelayModel.zeros(n_ants, 1, max_delay=16)
         if compensate:
             dm.d0 = np.asarray(delays, float).reshape(n_ants, 1)
-        runner = FXRunner(cfg, pfb_window(TAPS, M), delay_model=dm,
-                          impl="jnp")
+        runner = FXRunner(cfg, pfb_window(TAPS, M), delay_model=dm)
         dumps, _ = runner.run(
             lambda i: stream[..., i * cfg.chunk_samples:
                              (i + 1) * cfg.chunk_samples], n_chunks)

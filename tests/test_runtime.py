@@ -60,8 +60,7 @@ class TestRunnerFX:
         stream = _make_stream(cfg, n_chunks, seed=6)
         w = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
 
-        runner = FXRunner(cfg, w, delay_model=dm, gains=gains_ri,
-                          impl="jnp")
+        runner = FXRunner(cfg, w, delay_model=dm, gains=gains_ri)
         dumps, counters = runner.run(_source(stream, cfg), n_chunks)
 
         assert counters.chunks_in == 4 and counters.dumps == 2
@@ -79,7 +78,7 @@ class TestRunnerFX:
         dm = DelayModel.zeros(cfg.n_ants, cfg.n_pols)
         stream = _make_stream(cfg, 4, seed=7)
         w = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
-        runner = FXRunner(cfg, w, delay_model=dm, impl="jnp")
+        runner = FXRunner(cfg, w, delay_model=dm)
         dumps, counters = runner.run(_source(stream, cfg), 4,
                                      drop_chunks=[1])
         assert counters.chunks_dropped == 1
@@ -103,30 +102,27 @@ class TestRunnerFX:
         w = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
         src = _source(stream, cfg)
 
-        straight = FXRunner(cfg, w, delay_model=dm, impl="jnp")
+        straight = FXRunner(cfg, w, delay_model=dm)
         dumps_a, _ = straight.run(src, 4)
 
-        first = FXRunner(cfg, w, delay_model=dm, impl="jnp")
+        first = FXRunner(cfg, w, delay_model=dm)
         first.run(src, 2)
         ckpt = str(tmp_path / "state.npz")
         save_state(first, ckpt)
 
-        resumed = FXRunner(cfg, w, delay_model=dm, impl="jnp")
+        resumed = FXRunner(cfg, w, delay_model=dm)
         load_state(resumed, ckpt)
         assert resumed.chunk_idx == 2
         dumps_b, _ = resumed.run(src, 2)
 
         np.testing.assert_array_equal(dumps_a[1].vis, dumps_b[0].vis)
 
-    @pytest.mark.parametrize("impl", ["jnp", "fused_interpret"])
-    def test_run_batched_equals_streaming(self, impl):
+    def test_run_batched_equals_streaming(self):
         """The offline scan path (one dispatch per dump window) equals
         the per-chunk streaming run bitwise — same carry semantics,
-        drop bookkeeping, and dump extraction — on both the jnp and
-        the fused Pallas (frames-I/O) paths."""
-        nch = 512 if impl == "fused_interpret" else N_CHANS
+        drop bookkeeping, and dump extraction."""
         ntaps = 4
-        cfg = _cfg(n_chans=nch, n_taps=ntaps, spectra_per_chunk=8,
+        cfg = _cfg(n_chans=N_CHANS, n_taps=ntaps, spectra_per_chunk=8,
                    n_spectra_per_acc=16)
         dm = DelayModel.zeros(cfg.n_ants, cfg.n_pols, max_delay=8)
         dm.d0 += 2.0
@@ -135,9 +131,9 @@ class TestRunnerFX:
         w = pfb_window(ntaps, cfg.fft_size, cfg.window)
         src = _source(stream, cfg)
         import copy
-        r1 = FXRunner(cfg, w, delay_model=copy.deepcopy(dm), impl=impl)
+        r1 = FXRunner(cfg, w, delay_model=copy.deepcopy(dm))
         d1, c1 = r1.run(src, 4, drop_chunks=[1])
-        r2 = FXRunner(cfg, w, delay_model=copy.deepcopy(dm), impl=impl)
+        r2 = FXRunner(cfg, w, delay_model=copy.deepcopy(dm))
         d2, c2 = r2.run_batched(src, 4, drop_chunks=[1])
         assert len(d1) == len(d2) == 2
         for a, b in zip(d1, d2):
@@ -146,39 +142,6 @@ class TestRunnerFX:
             assert a.first_chunk == b.first_chunk
         assert c1.chunks_in == c2.chunks_in
         assert c1.chunks_dropped == c2.chunks_dropped == 1
-
-    def test_checkpoint_resume_frames_io(self, tmp_path):
-        """Resume under the frames-I/O convention (fused step: history
-        carried as (A*P, taps_pad, M) frames): bitwise-identical dumps
-        across the save/load boundary, and a samples-convention
-        checkpoint is refused with a clear error."""
-        cfg = _cfg(n_chans=512, n_taps=4, spectra_per_chunk=8,
-                   n_spectra_per_acc=16)
-        dm = DelayModel.zeros(cfg.n_ants, cfg.n_pols)
-        stream = _make_stream(cfg, 4, seed=21)
-        w = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
-        src = _source(stream, cfg)
-
-        straight = FXRunner(cfg, w, delay_model=dm,
-                            impl="fused_interpret")
-        assert straight._frames_io
-        dumps_a, _ = straight.run(src, 4)
-
-        first = FXRunner(cfg, w, delay_model=dm, impl="fused_interpret")
-        first.run(src, 2)
-        ckpt = str(tmp_path / "state.npz")
-        save_state(first, ckpt)
-
-        resumed = FXRunner(cfg, w, delay_model=dm,
-                           impl="fused_interpret")
-        load_state(resumed, ckpt)
-        dumps_b, _ = resumed.run(src, 2)
-        np.testing.assert_array_equal(dumps_a[1].vis, dumps_b[0].vis)
-
-        # cross-convention load (jnp runner carries sample-axis history)
-        other = FXRunner(cfg, w, delay_model=dm, impl="jnp")
-        with pytest.raises(ValueError, match="history shape"):
-            load_state(other, ckpt)
 
     def test_checkpoint_resume_with_drifting_delay(self, tmp_path):
         """Resume across a checkpoint with a DRIFTING delay model
@@ -195,11 +158,10 @@ class TestRunnerFX:
         src = _source(stream, cfg)
 
         import copy
-        straight = FXRunner(cfg, w, delay_model=copy.deepcopy(dm),
-                            impl="jnp")
+        straight = FXRunner(cfg, w, delay_model=copy.deepcopy(dm))
         dumps_a, _ = straight.run(src, 4)
 
-        first = FXRunner(cfg, w, delay_model=copy.deepcopy(dm), impl="jnp")
+        first = FXRunner(cfg, w, delay_model=copy.deepcopy(dm))
         first.run(src, 2)
         ckpt = str(tmp_path / "state.npz")
         save_state(first, ckpt)
@@ -209,8 +171,7 @@ class TestRunnerFX:
         resumed = FXRunner(
             cfg, w,
             delay_model=DelayModel.zeros(cfg.n_ants, cfg.n_pols,
-                                         max_delay=8),
-            impl="jnp")
+                                         max_delay=8))
         load_state(resumed, ckpt)
         assert resumed.delay_model.d1[0, 0] == pytest.approx(0.003)
         assert resumed.counters.chunks_in == 2
@@ -239,7 +200,7 @@ class TestRunnerFX:
         stream = _make_stream(cfg, n_chunks, seed=17)
         w = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
         runner = FXRunner(cfg, w, delay_model=copy.deepcopy(dm),
-                          gains=gains_ri, impl="jnp")
+                          gains=gains_ri)
         dumps, _ = runner.run(_source(stream, cfg), n_chunks)
 
         # (a) golden oracle with the same quadratic evaluation
@@ -267,14 +228,14 @@ class TestRunnerFX:
         # (b) resume mid-stream: d2/p2/t_ref ride the checkpoint
         src = _source(stream, cfg)
         first = FXRunner(cfg, w, delay_model=copy.deepcopy(dm),
-                         gains=gains_ri, impl="jnp")
+                         gains=gains_ri)
         first.run(src, 2)
         ckpt = str(tmp_path / "quad.npz")
         save_state(first, ckpt)
         resumed = FXRunner(
             cfg, w, delay_model=DelayModel.zeros(
                 cfg.n_ants, cfg.n_pols, max_delay=8),
-            gains=gains_ri, impl="jnp")
+            gains=gains_ri)
         load_state(resumed, ckpt)
         assert resumed.delay_model.d2[0, 0] == pytest.approx(8e-7)
         dumps_b, _ = resumed.run(src, 2)
@@ -319,8 +280,7 @@ class TestRunnerFX:
         gains_ri = np.stack([gains.real, gains.imag], -1).astype(np.float32)
         stream = _make_stream(cfg, n_chunks, seed=13)
         w = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
-        runner = FXRunner(cfg, w, delay_model=dm, gains=gains_ri,
-                          impl="jnp")
+        runner = FXRunner(cfg, w, delay_model=dm, gains=gains_ri)
         dumps, _ = runner.run(_source(stream, cfg), n_chunks)
 
         delayed = _golden_coarse_stream(cfg, stream, dm, n_chunks)
@@ -344,37 +304,14 @@ class TestRunnerFX:
             vis = dump.vis[..., 0] + 1j * dump.vis[..., 1]
             assert snr_db(vis_g, vis) > 50
 
-    def test_fused_native_fx_path_matches_golden(self):
-        """The fused-kernel FX path keeps the kernel's native channel
-        order into the X-engine and unpermutes at dump extraction; the
-        dumps must still be golden-correct in NATURAL channel order."""
-        from dc_sand_tpu.models.pipeline import fx_channel_perm
-        cfg = _cfg(n_chans=512, n_taps=4, spectra_per_chunk=8,
-                   n_spectra_per_acc=16, n_ants=2)
-        assert fx_channel_perm(cfg, "fused_interpret") is not None
-        n_chunks = 2
-        dm = DelayModel.zeros(cfg.n_ants, cfg.n_pols, max_delay=8)
-        dm.d0 += 3.0
-        gains = np.full(cfg.n_chans, 0.05) + 0j
-        gains_ri = np.stack([gains.real, gains.imag], -1).astype(np.float32)
-        stream = _make_stream(cfg, n_chunks, seed=14)
-        w = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
-        runner = FXRunner(cfg, w, delay_model=dm, gains=gains_ri,
-                          impl="fused_interpret")
-        dumps, _ = runner.run(_source(stream, cfg), n_chunks)
-        spec_g = _golden_chain(cfg, stream, dm, gains, n_chunks)
-        vis_g = golden.xcorr(spec_g)
-        vis = dumps[0].vis[..., 0] + 1j * dumps[0].vis[..., 1]
-        assert snr_db(vis_g, vis) > 50
-
     def test_checkpoint_wrong_config_rejected(self, tmp_path):
         cfg = _cfg()
         w = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
-        r = FXRunner(cfg, w, impl="jnp")
+        r = FXRunner(cfg, w)
         ckpt = str(tmp_path / "s.npz")
         save_state(r, ckpt)
         other = FXRunner(cfg.replace(n_chans=32),
-                         pfb_window(cfg.n_taps, 64, cfg.window), impl="jnp")
+                         pfb_window(cfg.n_taps, 64, cfg.window))
         with pytest.raises(ValueError, match="config hash"):
             load_state(other, ckpt)
 
@@ -390,13 +327,13 @@ class TestRunnerFEngine:
         w = pfb_window(TAPS, M)
 
         outs = []
-        r1 = FXRunner(cfg_small, w, impl="jnp")
+        r1 = FXRunner(cfg_small, w)
         r1.run(_source(stream, cfg_small), 4,
                on_output=lambda i, o: outs.append(o["spectra"]))
         small = np.concatenate(outs, axis=2)
 
         outs2 = []
-        r2 = FXRunner(cfg_big, w, impl="jnp")
+        r2 = FXRunner(cfg_big, w)
         r2.run(_source(stream, cfg_big), 1,
                on_output=lambda i, o: outs2.append(o["spectra"]))
         big = outs2[0]
@@ -412,7 +349,7 @@ class TestRunnerFEngine:
         stream = _make_stream(cfg, 2, seed=11)
         w = pfb_window(TAPS, M)
         outs = []
-        r = FXRunner(cfg, w, weights=wts, impl="jnp")
+        r = FXRunner(cfg, w, weights=wts)
         r.run(_source(stream, cfg), 2,
               on_output=lambda i, o: outs.append(o))
         assert outs[0]["beams"].shape == (2, 2, B_CHUNK, N_CHANS, 2)
@@ -442,7 +379,7 @@ class TestRunnerFEngine:
         w2 = rng.normal(size=(2, 4, N_CHANS, 2)).astype(np.float32)
         stream = _make_stream(cfg, 3, seed=15)
         outs = []
-        r = FXRunner(cfg, pfb_window(TAPS, M), weights=w1, impl="jnp")
+        r = FXRunner(cfg, pfb_window(TAPS, M), weights=w1)
 
         def on_out(i, o):
             outs.append(o)
@@ -469,7 +406,7 @@ class TestRunnerFEngine:
         wts = rng.normal(size=(2, 4, N_CHANS, 2)).astype(np.float32)
         stream = _make_stream(cfg, 2, seed=13)
         outs = []
-        r = FXRunner(cfg, pfb_window(TAPS, M), weights=wts, impl="jnp")
+        r = FXRunner(cfg, pfb_window(TAPS, M), weights=wts)
         r.run(_source(stream, cfg), 2,
               on_output=lambda i, o: outs.append(o))
         assert outs[0]["stokes"].shape == (2, 4, B_CHUNK, N_CHANS)
@@ -488,38 +425,6 @@ class TestRunnerFEngine:
                           n_beams=2, beam_stokes=True)
         with pytest.raises(ValueError, match="dual-pol"):
             make_step(cfg, pfb_window(TAPS, M))
-
-    def test_beam_mode_fused_native_path_matches_golden(self):
-        """The PRODUCTION beam path end-to-end through the runner:
-        frames I/O + fused F-engine + beamform_native (MXU identity-dot
-        relayout) + incoherent_sum_native, vs the float64 golden chain.
-        Uses a kernel-eligible shape (B=128 spectra) so the native
-        Pallas kernel actually runs (interpret mode)."""
-        from dc_sand_tpu.models.pipeline import mode_for
-        cfg = ChainConfig(name="t", n_ants=4, n_pols=2, n_chans=512,
-                          n_taps=4, spectra_per_chunk=128,
-                          apply_delay=True, apply_requant=True,
-                          n_beams=2, incoherent_beam=True)
-        assert mode_for(cfg) == "beam"
-        rng = np.random.default_rng(17)
-        wts = rng.normal(size=(2, 4, 512, 2)).astype(np.float32)
-        stream = _make_stream(cfg, 2, seed=18)
-        w = pfb_window(cfg.n_taps, cfg.fft_size)
-        outs = []
-        r = FXRunner(cfg, w, weights=wts, impl="fused_interpret")
-        assert r._frames_io
-        r.run(_source(stream, cfg), 2,
-              on_output=lambda i, o: outs.append(o))
-        b = cfg.spectra_per_chunk
-        spec_g = _golden_chain(
-            cfg, stream, DelayModel.zeros(cfg.n_ants, cfg.n_pols),
-            np.full(cfg.n_chans, cfg.quant_scale) + 0j, 2)
-        wg = wts[..., 0] + 1j * wts[..., 1]
-        beams_g = golden.beamform(spec_g[:, :, b:], wg)
-        assert snr_db(beams_g, np_ri2c(outs[1]["beams"])) > 50
-        inc_g = golden.incoherent_sum(spec_g[:, :, b:])
-        assert snr_db(inc_g, outs[1]["incoherent"]) > 50
-
 
 class TestSteering:
     def test_steering_weights_cohere_through_beamformer(self):
@@ -556,7 +461,7 @@ class TestBeamQuant:
         stream = _make_stream(cfg, 2, seed=41)
         w = pfb_window(TAPS, M)
         outs = []
-        r = FXRunner(cfg, w, weights=wts, impl="jnp")
+        r = FXRunner(cfg, w, weights=wts)
         r.run(_source(stream, cfg), 2, on_output=lambda i, o: outs.append(o))
         assert outs[0]["beams"].dtype == np.int8
         spec_g = _golden_chain(
@@ -573,7 +478,7 @@ class TestHeadroom:
     def test_overflow_window_rejected(self):
         cfg = _cfg(n_spectra_per_acc=70000, spectra_per_chunk=4)
         with pytest.raises(ValueError, match="overflow"):
-            FXRunner(cfg, pfb_window(TAPS, M), impl="jnp")
+            FXRunner(cfg, pfb_window(TAPS, M))
 
     def test_max_amplitude_exact(self):
         """Full-scale +/-127 inputs integrate exactly (no silent wrap)."""
@@ -617,7 +522,7 @@ class TestRunnerFuzz:
                                  (cfg.n_ants, cfg.n_pols)).astype(float)
             stream = _make_stream(cfg, n_chunks, seed=seed)
             w = pfb_window(cfg.n_taps, cfg.fft_size, cfg.window)
-            runner = FXRunner(cfg, w, delay_model=dm, impl="jnp")
+            runner = FXRunner(cfg, w, delay_model=dm)
             dumps, counters = runner.run(_source(stream, cfg), n_chunks,
                                          drop_chunks=drops)
             assert counters.chunks_dropped == len(drops)
